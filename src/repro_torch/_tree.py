@@ -1,0 +1,70 @@
+"""Parameter trees as plain containers, flattened in ``jax.tree_util`` order.
+
+The JAX package keeps parameters and optimizer state as pytrees. The
+port keeps the same containers (dicts, tuples, NamedTuples, lists) and
+flattens them in the order ``jax.tree_util`` does: dict keys sorted,
+sequences in order, ``None`` an empty node. That order fixes the layout
+of the flat ``(P,)`` buffer (:func:`repro_torch.core.aggregation.
+ravel_spec`), so flat parameter and gradient buffers of the two packages
+can be compared element by element. ``torch.utils._pytree`` keeps dicts
+in insertion order, which is why the port does not use it here.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def tree_flatten(tree) -> tuple[list, Any]:
+    """``tree`` → (leaves, treedef); ``treedef`` is hashable."""
+    leaves: list = []
+
+    def walk(node):
+        if node is None:
+            return ("none",)
+        if isinstance(node, dict):
+            keys = tuple(sorted(node))
+            return ("dict", keys, tuple(walk(node[k]) for k in keys))
+        if _is_namedtuple(node):
+            return ("namedtuple", type(node), tuple(walk(c) for c in node))
+        if isinstance(node, (tuple, list)):
+            return (type(node).__name__, tuple(walk(c) for c in node))
+        leaves.append(node)
+        return ("leaf",)
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(treedef, leaves):
+    it = iter(leaves)
+
+    def build(d):
+        kind = d[0]
+        if kind == "leaf":
+            return next(it)
+        if kind == "none":
+            return None
+        if kind == "dict":
+            return {k: build(c) for k, c in zip(d[1], d[2])}
+        if kind == "namedtuple":
+            return d[1](*(build(c) for c in d[2]))
+        children = [build(c) for c in d[1]]
+        return tuple(children) if kind == "tuple" else children
+
+    return build(treedef)
+
+
+def tree_leaves(tree) -> list:
+    return tree_flatten(tree)[0]
+
+
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` leafwise over trees of one structure."""
+    leaves, treedef = tree_flatten(tree)
+    others = [tree_flatten(r)[0] for r in rest]
+    return tree_unflatten(treedef,
+                          [fn(*xs) for xs in zip(leaves, *others)])

@@ -1,0 +1,279 @@
+"""ClientSimulator — energy process, scheduler and SGD, in torch.
+
+Port of the flat-carry path of ``repro.core.trainer.ClientSimulator``:
+N clients, per-client stochastic gradients, and the server aggregation
+with ω_i = p_i·mask_i·scale_i (paper eq. 11/12). Params and optimizer
+state live in the carry as flat ``(P,)`` buffers (DESIGN.md §5): each
+step emits one ``(N, P)`` gradient buffer and reduces it with one kernel
+launch or one matvec. With ``use_kernel`` and a plain ``sgd``
+optimizer the reduction and the parameter step are one launch of the
+fused kernel K2; with any other optimizer the reduction is kernel K1.
+
+Where the JAX package runs the loop as one ``lax.scan``, the port runs a
+Python loop on the device; nothing in a step waits for the device
+except what the caller reads. The JAX package donates the carry to its
+scan; the port allocates each step's new parameter buffer instead (the
+buffer is 4·P bytes, small beside the (N, P) gradients), and leaves the
+input carry valid.
+
+Not ported yet: the legacy per-leaf carry (``flat=False``, and
+mixed-dtype parameters; ROADMAP Queue 1 item 7) and fault injection
+(``faults=``, item 9), both refused with ``NotImplementedError``;
+client-axis sharding (item 10); ``build_energy_train_step``, the SPMD
+path of the LM zoo (item 12).
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch import random as trandom
+from repro_torch._device import resolve_device
+from repro_torch._tree import tree_map
+from repro_torch.core import aggregation
+from repro_torch.optim import Optimizer, apply_updates
+
+
+class SimCarry(NamedTuple):
+    params: Any
+    opt_state: Any
+    sched_state: Any
+    energy_state: Any
+    key: torch.Tensor
+    t: torch.Tensor
+    fault_state: Any = ()
+
+
+class SimHistory(NamedTuple):
+    loss: torch.Tensor           # (T,) global loss (if loss_fn given, else 0)
+    participation: torch.Tensor  # (T, N) masks
+    weight_sum: torch.Tensor     # (T,) Σ_i ω_i (≈1 in expectation for unbiased)
+    finite: torch.Tensor = None  # (T,) bool — params finite after the step
+
+
+def _no_faults(faults):
+    if faults is not None:
+        raise NotImplementedError(
+            "fault injection is not ported yet (ROADMAP Queue 1 item 9)")
+
+
+class ClientSimulator:
+    """Paper-faithful N-client distributed-SGD simulator.
+
+    Parameters
+    ----------
+    grads_fn : (params, key, t) -> (N,)-stacked gradient tree, or one
+        ``(N, ...)`` tensor. Owns data sampling (eq. 4).
+    p : (N,) data weights p_i = D_i / D.
+    optimizer : :class:`repro_torch.optim.Optimizer`; ``sgd(eta)`` for
+        the paper's semantics.
+    scheduler, energy : :mod:`repro_torch.core.scheduling` /
+        :mod:`repro_torch.core.energy` objects, here or per call.
+    loss_fn : optional (params) -> scalar global loss, logged per step.
+    use_kernel : aggregate through the CUDA kernels K1/K2 (their plain
+        versions for CPU tensors); default a torch matvec.
+    flat : only the flat carry is ported; ``False`` raises.
+    device : where the loop runs; None means the CUDA card and raises
+        when there is none.
+    """
+
+    def __init__(self, *, grads_fn, p, optimizer: Optimizer,
+                 scheduler=None, energy=None, faults=None,
+                 loss_fn=None, use_kernel: bool = False,
+                 flat: bool | None = None, device=None):
+        _no_faults(faults)
+        if flat is False:
+            raise NotImplementedError(
+                "the legacy per-leaf carry (flat=False) is not ported; the "
+                "port runs the flat carry only (ROADMAP Queue 1 item 7)")
+        self.device = resolve_device(device)
+        self.grads_fn = grads_fn
+        self.scheduler = scheduler
+        self.energy = energy
+        self.p = self._f32(p)
+        self.optimizer = optimizer
+        self.loss_fn = loss_fn
+        self.use_kernel = use_kernel
+        self._gfn_cache: dict = {}
+
+    def _f32(self, x):
+        if x is None:
+            return None
+        return torch.as_tensor(x, dtype=torch.float32).to(self.device)
+
+    def _components(self, scheduler, energy):
+        scheduler = self.scheduler if scheduler is None else scheduler
+        energy = self.energy if energy is None else energy
+        if scheduler is None or energy is None:
+            raise ValueError(
+                "scheduler/energy must be given either at construction or "
+                "as arguments to init/step/run")
+        # Built-in processes keep their tables on the CPU until placed
+        # here; a custom process without ``to`` places itself.
+        to = getattr(energy, "to", None)
+        return scheduler, (energy if to is None else to(self.device))
+
+    def flat_spec(self, params):
+        """The :class:`~repro_torch.core.aggregation.RavelSpec` the
+        simulator runs ``params`` under."""
+        try:
+            return aggregation.ravel_spec(params)
+        except ValueError as e:
+            raise NotImplementedError(
+                "mixed-dtype parameters need the legacy per-leaf carry, "
+                f"which is not ported (ROADMAP Queue 1 item 7; {e})") from None
+
+    def _flat_grads(self, spec):
+        fn = self._gfn_cache.get(spec)
+        if fn is None:
+            fn = aggregation.make_flat_grads_fn(
+                self.grads_fn, spec, int(self.p.shape[0]))
+            self._gfn_cache[spec] = fn
+        return fn
+
+    def init(self, key, params, *, scheduler=None, energy=None,
+             faults=None, spec=None) -> SimCarry:
+        """Build the carry: params and optimizer state flat under ``spec``
+        (default: :meth:`flat_spec` of ``params``)."""
+        _no_faults(faults)
+        scheduler, energy = self._components(scheduler, energy)
+        spec = self.flat_spec(params) if spec is None else spec
+        params = aggregation.ravel_pytree(params, spec).to(self.device)
+        key = key.to(self.device)
+        k_sched, k_energy, k_run = trandom.split(key, 3).unbind(0)
+        return SimCarry(
+            params=params,
+            opt_state=self.optimizer.init(params),
+            sched_state=scheduler.init(k_sched),
+            energy_state=energy.init(k_energy),
+            key=k_run,
+            t=torch.zeros((), dtype=torch.int32, device=self.device),
+        )
+
+    def step(self, carry: SimCarry, scheduler=None, energy=None, *, spec,
+             p=None, active_mask=None, faults=None) -> tuple[SimCarry, dict]:
+        """One server round on a flat carry made under ``spec``."""
+        _no_faults(faults)
+        scheduler, energy = self._components(scheduler, energy)
+        return self._step(carry, scheduler, energy, spec, self._f32(p),
+                          self._f32(active_mask))
+
+    @torch.no_grad()
+    def _step(self, carry: SimCarry, scheduler, energy, spec, p=None,
+              active_mask=None) -> tuple[SimCarry, dict]:
+        """The step body. ``p`` overrides the constructor weights and
+        ``active_mask`` is the (N,) 0/1 existing-client mask (DESIGN.md
+        §7); both are f32 tensors on the simulator's device or None."""
+        p = self.p if p is None else p
+        key, k_arr, k_sched, k_grad = trandom.split(carry.key, 4).unbind(0)
+        energy_state, arr = energy.arrivals(carry.energy_state, carry.t, k_arr)
+        sched_state, dec = scheduler.step(carry.sched_state, carry.t, k_sched,
+                                          arr, active=active_mask)
+        weights = aggregation.client_weights(p, dec)
+        if active_mask is not None:
+            # Zero weight for rows that do not exist even if a custom
+            # scheduler leaked mass to them (×1 on active rows is exact).
+            weights = weights * active_mask
+        params_tree = aggregation.unravel_pytree(carry.params, spec)
+        g = self._flat_grads(spec)(params_tree, k_grad, carry.t)
+        if self.use_kernel and getattr(self.optimizer, "kind", "") == "sgd":
+            # One launch of K2: the same f32 op sequence as
+            # reduce → −η·agg → add.
+            params, opt_state, _ = aggregation.fused_flat_sgd_update(
+                g, weights, carry.params, carry.opt_state, self.optimizer,
+                mask=active_mask, use_kernel=True)
+        else:
+            agg = aggregation.reduce_flat(g, weights,
+                                          use_kernel=self.use_kernel,
+                                          mask=active_mask)
+            updates, opt_state = self.optimizer.update(
+                agg, carry.opt_state, carry.params)
+            params = apply_updates(carry.params, updates)
+        loss = (self.loss_fn(aggregation.unravel_pytree(params, spec))
+                if self.loss_fn is not None
+                else torch.zeros((), dtype=torch.float32, device=self.device))
+        out = {
+            "loss": loss,
+            "participation": dec.mask,
+            "weight_sum": torch.sum(weights),
+            "finite": torch.all(torch.isfinite(params)),
+        }
+        new_carry = SimCarry(params=params, opt_state=opt_state,
+                             sched_state=sched_state, energy_state=energy_state,
+                             key=key, t=carry.t + 1)
+        return new_carry, out
+
+    def _steps(self, carry, num_steps, scheduler, energy, spec, p,
+               active_mask):
+        outs = []
+        for _ in range(num_steps):
+            carry, out = self._step(carry, scheduler, energy, spec, p,
+                                    active_mask)
+            outs.append(out)
+        return carry, outs
+
+    @staticmethod
+    def _history(outs) -> SimHistory:
+        if not outs:
+            raise ValueError("a run needs num_steps >= 1")
+        stack = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        return SimHistory(loss=stack["loss"],
+                          participation=stack["participation"],
+                          weight_sum=stack["weight_sum"],
+                          finite=stack["finite"])
+
+    def run(self, key, params, num_steps: int, *, scheduler=None, energy=None,
+            faults=None, p=None, active_mask=None, eval_fn=None,
+            eval_every: int = 0):
+        """Run ``num_steps`` rounds from ``params``.
+
+        Without ``eval_fn``: returns ``(final_params, SimHistory)``. With
+        ``eval_fn`` (params -> metric tree): evaluates after every
+        ``eval_every`` steps and returns ``(final_params, SimHistory,
+        evals)``, every ``evals`` leaf with leading axis
+        ``num_steps // eval_every``. ``final_params`` has the structure
+        of ``params``.
+        """
+        _no_faults(faults)
+        scheduler, energy = self._components(scheduler, energy)
+        spec = self.flat_spec(params)
+        carry = self.init(key, params, scheduler=scheduler, energy=energy,
+                          spec=spec)
+        p, active_mask = self._f32(p), self._f32(active_mask)
+        if eval_fn is None:
+            carry, outs = self._steps(carry, num_steps, scheduler, energy,
+                                      spec, p, active_mask)
+            return (aggregation.unravel_pytree(carry.params, spec),
+                    self._history(outs))
+        if eval_every <= 0:
+            eval_every = num_steps
+        if num_steps % eval_every != 0:
+            raise ValueError(
+                f"num_steps={num_steps} must divide by eval_every={eval_every}")
+        outs, evals = [], []
+        for _ in range(num_steps // eval_every):
+            carry, chunk = self._steps(carry, eval_every, scheduler, energy,
+                                       spec, p, active_mask)
+            outs += chunk
+            with torch.no_grad():
+                evals.append(eval_fn(aggregation.unravel_pytree(carry.params,
+                                                                spec)))
+        evals = tree_map(lambda *xs: torch.stack(xs), *evals)
+        return (aggregation.unravel_pytree(carry.params, spec),
+                self._history(outs), evals)
+
+    def run_carry(self, carry: SimCarry, num_steps: int, *, scheduler=None,
+                  energy=None, faults=None, p=None, active_mask=None,
+                  spec) -> tuple[SimCarry, SimHistory]:
+        """Advance a flat carry (from :meth:`init`, or converted from the
+        JAX package by :func:`repro_torch.convert.carry_from_jax`)
+        ``num_steps`` rounds. ``spec`` is the :meth:`flat_spec` of the
+        original params. The whole step stream is a function of the
+        carry, so a resumed run equals the uninterrupted one."""
+        _no_faults(faults)
+        scheduler, energy = self._components(scheduler, energy)
+        carry, outs = self._steps(carry, num_steps, scheduler, energy, spec,
+                                  self._f32(p), self._f32(active_mask))
+        return carry, self._history(outs)

@@ -1,0 +1,8 @@
+"""Hand-written CUDA kernels for Hopper, one package per TPU kernel of
+the JAX package. Each ships its CUDA source under ``csrc/``, an
+``ops.py`` wrapper (checks, dispatch, launch counts) and a ``ref.py``
+plain PyTorch version.
+
+* ``aggregate`` — masked/scaled client-gradient aggregation (paper
+  eq. 11/12) and the fused reduce-and-update server step.
+"""

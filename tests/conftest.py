@@ -44,6 +44,10 @@ def pytest_configure(config):
         "markers",
         "multihost: simulated multi-process `jax.distributed` execution "
         "(subprocess workers, DESIGN.md §13) — select with `-m multihost`")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's kernels have no CPU mode); "
+        "skips inside the test when there is none")
 
 
 def pytest_collection_modifyitems(config, items):
