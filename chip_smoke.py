@@ -8,8 +8,9 @@ without printing its result line:
 
 1. Card check: a CUDA device is required; prints ``nvidia-smi``'s name
    and power limit.
-2. Build: compiles the aggregate kernels (``csrc/aggregate.cu``) with
-   nvcc and prints the seconds it took.
+2. Build: compiles the aggregate kernels (``csrc/aggregate.cu``) and the
+   flash-attention kernel (``csrc/flash_attention.cu``) with nvcc, one
+   process for each source, both at once, and prints the seconds.
 3. Kernel phase, at the Fig-1 shape (N = 40 clients, P = 316,554 CNN
    parameters) and at a ragged P = 2,049: K1 (dense; masked with inf/NaN
    rows; bf16 gradients into f32) and K2 (update f32; update of bf16
@@ -18,7 +19,7 @@ without printing its result line:
    K2 at the Fig-1 shape with CUDA events over 60 launches, the L2 cache
    flushed before each (and back to back), beside the plain versions,
    the one PyTorch call that computes the same function, and the bound.
-4. Slice phase: the paper's Fig-1 training loop at full width through
+4. Fig-1 phase: the paper's Fig-1 training loop at full width through
    ``ClientSimulator`` with ``use_kernel=True``: alg1, benchmark1,
    benchmark2 and oracle with sgd(0.05) (kernel K2), alg1 with momentum
    (kernel K1), and both again with 4 of the 40 clients masked out (the
@@ -28,32 +29,66 @@ without printing its result line:
    matvec (``use_kernel=False``) as the reference the kernel run must
    agree with, and a last run under ``torch.profiler`` prints where a
    step's device time goes and the device's busy share.
-5. Prints the ``kernels`` JSON line, then the result line.
+5. K3 phase: the flash-attention kernel against its plain version
+   computed in f32 from the same inputs, at the prefill shape of the LM
+   phase (B = 8, H = 32, S = T = 2,048, Dh = 64, causal, bf16), GQA 24/8
+   with Dh = 128, a 512 window, bidirectional f32, ragged S = T = 1,000,
+   and S = 100 against T = 40 with a 16 window (rows that see no key
+   must be exact zeros). Times K3 at the prefill shape, flushed and
+   warm, beside the plain version, ``F.scaled_dot_product_attention``
+   and the bound.
+6. LM phase: stablelm-1.6b at full width (24 layers, d_model 2048, 32
+   heads of 64, d_ff 5632, vocab 100352, bf16; random weights from a
+   seed). Three prefills of B = 8 × S = 2,048 through
+   ``make_prefill_step`` with ``use_flash=True``: the K3 count is set to
+   0 before them and must be 24 × 3 after. Then the same prefill with
+   plain attention (bf16) and with the weights upcast to f32 and plain
+   attention (the reference): flash's last-position logits must lie
+   within 2× the plain bf16 prefill's distance from the reference (the
+   floor), and flash's argmax must equal the reference's on every row
+   whose top-two gap exceeds 2× the floor. Then decode at B = 8 through
+   ``make_serve_step``: a 448-token prompt fed token by token into a
+   512-slot cache, its logits at position 447 held against the f32
+   reference prefill of those 448 tokens by the same rule, and 64
+   greedy steps. ``torch.profiler`` over one prefill and one decode
+   step, and the peak device memory.
+7. Prints the ``kernels`` JSON line, then the result line.
 
-Tolerances: f32 kernels against the plain versions rtol=atol=1e-6 (the
-client sum runs in another order; weights at the trainer's scale, Σω≈1);
-bf16 gradients into f32 1e-5; a bf16 result within one bf16 rounding
-step (relative 2**-8). TF32 is off for matmuls and convolutions, so the
-reference run is full f32.
+Tolerances: f32 aggregate kernels against the plain versions
+rtol=atol=1e-6 (the client sum runs in another order; weights at the
+trainer's scale, Σω≈1); bf16 gradients into f32 1e-5; a bf16 result
+within one bf16 rounding step (relative 2**-8). K3 in bf16:
+max|K3 − plain_f32| ≤ 2**-7 · max|plain_f32| (two bf16 roundings: p for
+the tensor-core product, and the output); K3 in f32 rtol=atol=1e-5.
+TF32 is off for matmuls and convolutions, so every reference is full
+f32.
 """
 
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 SOURCE = "src/repro_torch/kernels/aggregate/csrc/aggregate.cu"
+K3_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 N_CLIENTS, N_GROUPS, BATCH, LR = 40, 4, 16, 0.05
 N_TRAIN, N_TEST = 8000, 800
 STEPS, EVAL_EVERY, REF_STEPS, PROFILE_STEPS = 40, 20, 3, 10
 TIMED_LAUNCHES = 60
-# Peak rates of the H100 SXM (NVIDIA data sheet): HBM bytes/s and f32
-# (non-tensor-core) flop/s. torch names that card "NVIDIA H100 80GB HBM3".
+# LM phase: batch, prefill length, prefills counted, decode prompt,
+# cache slots and greedy steps.
+LM_BATCH, LM_SEQ, LM_PREFILLS = 8, 2048, 3
+LM_PROMPT, LM_CACHE, LM_GREEDY = 448, 512, 64
+LM_PARAMS = 1_644_883_968
+# Peak rates of the H100 SXM (NVIDIA data sheet): HBM bytes/s, f32
+# (non-tensor-core) flop/s and dense bf16 tensor-core flop/s. torch
+# names that card "NVIDIA H100 80GB HBM3".
 H100_SXM = "H100 80GB HBM3"
-H100_SXM_PEAKS = (3.35e12, 67e12)
+H100_SXM_PEAKS = (3.35e12, 67e12, 989e12)
 
 
 def card_peaks(name):
@@ -93,6 +128,36 @@ def time_ms(torch, fn, flush):
     torch.cuda.synchronize()
     flushed = sum(s.elapsed_time(e) for s, e in pairs) / TIMED_LAUNCHES
     return flushed, start.elapsed_time(end) / TIMED_LAUNCHES
+
+
+def profile(torch, label, unit, fn, n_units, keep=None):
+    """Print ``torch.profiler``'s view of ``fn`` (``n_units`` steps or
+    prefills): wall and device-busy time per unit, the device's busy
+    share of the wall time, and the top kernels by device time (plus any
+    kernel whose name holds ``keep``)."""
+    act = torch.profiler.ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # Kernel rows only: an operator's row repeats its kernels' time.
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(r[1] for r in rows)
+    check(busy_us > 0, f"profile {label}: the profiler saw no device time")
+    print(f"profile {label}: wall {wall_us / n_units / 1e3:.2f} ms/{unit}, "
+          f"device busy {busy_us / n_units / 1e3:.2f} ms/{unit} "
+          f"({100 * busy_us / wall_us:.1f} % of wall), "
+          f"{sum(r[2] for r in rows) / n_units:.0f} device ops/{unit}")
+    ranked = sorted(rows, key=lambda r: -r[1])
+    for name, us, count in ranked[:8] + [r for r in ranked[8:]
+                                         if keep and keep in r[0]]:
+        print(f"profile {label}:   {100 * us / busy_us:5.1f} %  "
+              f"{us / n_units:9.1f} us/{unit}  x{count / n_units:<6.1f} "
+              f"{name[:90]}")
 
 
 def kernel_phase(torch, ops, ref, peaks):
@@ -182,7 +247,7 @@ def kernel_phase(torch, ops, ref, peaks):
     return errs, timing
 
 
-def slice_phase(torch, rt):
+def fig1_phase(torch, rt):
     """The Fig-1 loop at full width, through the kernels."""
     seed = 0
     ds = rt.data.make_confusable_image_classification(
@@ -258,7 +323,7 @@ def slice_phase(torch, rt):
                   f"{label}: a masked-out client took part")
         acc = evals["accuracy"].tolist()
         loss = evals["loss"].tolist()
-        print(f"slice {label:<22} test acc {acc[0]:.3f} -> {acc[-1]:.3f}  "
+        print(f"fig-1 {label:<22} test acc {acc[0]:.3f} -> {acc[-1]:.3f}  "
               f"test loss {loss[0]:.4f} -> {loss[-1]:.4f}  "
               f"mean participation {hist.participation.mean().item():.3f}  "
               f"{ms:.2f} ms/step")
@@ -279,7 +344,7 @@ def slice_phase(torch, rt):
     check(torch.equal(hist_k.participation, hist_ref.participation),
           "participation differs between the kernel and the matvec path")
     torch.testing.assert_close(flat_k, flat_ref, rtol=1e-4, atol=1e-5)
-    print(f"slice reference: {REF_STEPS} alg1 steps through the kernels and "
+    print(f"fig-1 reference: {REF_STEPS} alg1 steps through the kernels and "
           f"through the torch matvec agree, max abs param diff "
           f"{(flat_k - flat_ref).abs().max().item():.3g}")
 
@@ -292,29 +357,236 @@ def slice_phase(torch, rt):
         energy=arrivals, use_kernel=True, device=DEVICE)
     key = rt.random.PRNGKey(seed + 1, device=DEVICE)
     sim.run(key, params0, 2)
-    act = torch.profiler.ProfilerActivity
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim.run(key, params0, PROFILE_STEPS)
+    profile(torch, f"fig-1 ({PROFILE_STEPS} alg1/sgd steps)", "step",
+            lambda: sim.run(key, params0, PROFILE_STEPS), PROFILE_STEPS,
+            "aggregate")
+    return launches
+
+
+K3_CASES = (  # label, (B, H, Hkv, S, T, Dh), causal, window, dtype name
+    ("prefill shape", (LM_BATCH, 32, 32, LM_SEQ, LM_SEQ, 64), True, 0, "bfloat16"),
+    ("GQA 24/8 Dh=128", (2, 24, 8, 1024, 1024, 128), True, 0, "bfloat16"),
+    ("window 512", (2, 32, 32, 2048, 2048, 64), True, 512, "bfloat16"),
+    ("bidirectional f32", (2, 8, 8, 512, 512, 64), False, 0, "float32"),
+    ("ragged S=T=1000", (2, 32, 32, 1000, 1000, 64), True, 0, "bfloat16"),
+    ("rows with no key", (2, 4, 2, 100, 40, 64), False, 16, "bfloat16"),
+)
+
+
+def k3_phase(torch, fa_ops, fa_ref, peaks):
+    """K3 against its plain version (in f32, same inputs) at every case;
+    timings at the prefill shape."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    max_err = 0.0
+    timing = None
+    for label, (b, h, hkv, s, t, dh), causal, window, dt in K3_CASES:
+        dtype = getattr(torch, dt)
+        q = torch.randn(b, s, h, dh, device=DEVICE, generator=gen).to(dtype)
+        k = torch.randn(b, t, hkv, dh, device=DEVICE, generator=gen).to(dtype)
+        v = torch.randn(b, t, hkv, dh, device=DEVICE, generator=gen).to(dtype)
+        out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = fa_ref.flash_attention_ref(
+            q.float().transpose(1, 2), k.float().transpose(1, 2),
+            v.float().transpose(1, 2), causal=causal,
+            window=window).transpose(1, 2)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # Kernel rows only: an operator's row repeats its kernels' time.
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(r[1] for r in rows)
-    print(f"profile: {PROFILE_STEPS} alg1/sgd steps, wall "
-          f"{wall_us / PROFILE_STEPS / 1e3:.2f} ms/step, device busy "
-          f"{busy_us / PROFILE_STEPS / 1e3:.2f} ms/step "
-          f"({100 * busy_us / wall_us:.1f} % of wall), "
-          f"{sum(r[2] for r in rows) / PROFILE_STEPS:.0f} device ops/step")
-    ranked = sorted(rows, key=lambda r: -r[1])
-    for name, us, count in ranked[:10] + [r for r in ranked[10:]
-                                          if "aggregate" in r[0]]:
-        print(f"profile:   {100 * us / max(busy_us, 1e-9):5.1f} %  "
-              f"{us / PROFILE_STEPS:9.1f} us/step  x{count / PROFILE_STEPS:<6.1f} "
-              f"{name[:90]}")
+        check(out.dtype == dtype and out.shape == q.shape,
+              f"K3 {label}: output {out.dtype} {tuple(out.shape)}")
+        err = (out.float() - want).abs().max().item()
+        max_err = max(max_err, err)
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+            how = "rtol=atol=1e-05"
+        else:
+            bound = 2 ** -7 * want.abs().max().item()
+            check(err <= bound, f"K3 {label}: max abs err {err:.4g} above "
+                  f"the bf16 bound {bound:.4g}")
+            how = f"{err / bound:.3f} of the bf16 bound"
+        dead = ~fa_ref.visible_mask(s, t, causal=causal, window=window,
+                                    device=DEVICE).any(dim=1)
+        if dead.any():
+            check(bool((out[:, dead] == 0).all()),
+                  f"K3 {label}: rows with no key are not exact zeros")
+            how += f", {int(dead.sum())} rows with no key exact zeros"
+        print(f"k3 phase {label:<18} B,H,Hkv,S,T,Dh={(b, h, hkv, s, t, dh)} "
+              f"causal={causal} window={window} {dt}: agrees "
+              f"(max abs err {err:.3g}, {how})")
+        if label != "prefill shape":
+            continue
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=DEVICE)
+        fns = (lambda: fa_ops.flash_attention(q, k, v, causal=True),
+               lambda: fa_ref.flash_attention_ref(qt, kt, vt, causal=True),
+               lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+        with torch.no_grad():
+            times = [time_ms(torch, fn, flush) for fn in fns]
+        # The work this run's inputs need: the two products over the
+        # visible (query, key) pairs only, and q, k, v, out moved once.
+        pairs = int(fa_ref.visible_mask(s, t, causal=True, window=0,
+                                        device=DEVICE).sum())
+        flops = 4 * b * h * dh * pairs
+        nbytes = 2 * (2 * b * s * h * dh + 2 * b * t * hkv * dh)
+        bound_f, bound_b = flops / peaks[2] * 1e3, nbytes / peaks[0] * 1e3
+        timing = {
+            "ms": times[0][0], "plain_ms": times[1][0],
+            "library_ms": times[2][0], "warm_ms": times[0][1],
+            "plain_warm_ms": times[1][1], "library_warm_ms": times[2][1],
+            "bound_ms": max(bound_f, bound_b),
+            "bound_by": "operations" if bound_f >= bound_b else "bytes"}
+        print(f"time k3 (L2 flushed | warm, ms): kernel {times[0][0]:.4f} | "
+              f"{times[0][1]:.4f}, plain {times[1][0]:.4f} | {times[1][1]:.4f}, "
+              f"library (F.scaled_dot_product_attention) {times[2][0]:.4f} | "
+              f"{times[2][1]:.4f}, bound {timing['bound_ms']:.4f} "
+              f"({flops / 1e9:.1f} GFLOP bf16, {nbytes / 1e6:.0f} MB; "
+              f"{flops / times[0][0] / 1e9:.1f} TFLOP/s achieved flushed)")
+        del q, k, v, out, want, flush
+    print(f"k3 phase: largest abs error {max_err:.4g}")
+    return max_err, timing
+
+
+def lm_phase(torch, rt, fa_ops):
+    """stablelm-1.6b at full width: flash prefill through K3, the f32
+    reference, decode through the KV cache, the profile."""
+    from repro_torch._tree import tree_map
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer
+
+    cfg = rt.configs.get_config("stablelm-1.6b").replace(use_flash=True)
+    plain_cfg = cfg.replace(use_flash=False)
+    ref_cfg = plain_cfg.replace(dtype_name="float32")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = transformer.init_lm(rt.random.PRNGKey(0, device=DEVICE), cfg)
+    torch.cuda.synchronize()
+    n_params = rt.models.count_params(params)
+    check(n_params == LM_PARAMS, f"stablelm-1.6b has {n_params} parameters")
+    check(params["stack"]["seg0"]["attn"]["wq"]["w"].shape
+          == (cfg.n_layers, cfg.d_model, cfg.n_heads * cfg.resolved_head_dim)
+          and params["embed"]["w"].dtype == torch.bfloat16,
+          "stablelm-1.6b parameter layout")
+    print(f"lm init: {cfg.name} at full width ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), "
+          f"{n_params:,} parameters "
+          f"({2 * n_params / 1e9:.2f} GB bf16) in "
+          f"{time.perf_counter() - t0:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    data = rt.data.make_lm_tokens(0, LM_BATCH, LM_SEQ, cfg.vocab).tokens
+    tokens = torch.from_numpy(data[:, :LM_SEQ]).to(DEVICE)
+    prompt = tokens[:, :LM_PROMPT]
+    prefill = make_prefill_step(cfg)
+    plain = make_prefill_step(plain_cfg)
+    reference = make_prefill_step(ref_cfg)
+
+    def dist(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    def argmax_agrees(got, ref, floor):
+        top2 = ref.float().topk(2, dim=-1).values
+        rows = (top2[:, 0] - top2[:, 1]) > 2 * floor
+        same = got.float().argmax(-1) == ref.float().argmax(-1)
+        return bool(same[rows].all()), int(rows.sum())
+
+    # The main path: the counted flash prefills.
+    fa_ops.reset_launch_counts()
+    ms = []
+    with torch.no_grad():
+        for _ in range(LM_PREFILLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flash = prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    launches = fa_ops.launch_counts["flash_attention"]
+    check(launches == cfg.n_layers * LM_PREFILLS,
+          f"K3 launches {launches}, expected {cfg.n_layers} x {LM_PREFILLS}")
+    check(flash.shape == (LM_BATCH, cfg.vocab) and bool(torch.isfinite(flash).all()),
+          "flash prefill logits not finite or of the wrong shape")
+    print(f"lm prefill (use_flash, K3): B={LM_BATCH} S={LM_SEQ}: "
+          + " ".join(f"{m:.2f}" for m in ms) + f" ms per prefill, "
+          f"{LM_BATCH * LM_SEQ / min(ms) * 1e3:,.0f} tokens/s (best), "
+          f"{launches} K3 launches in {LM_PREFILLS} prefills")
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_logits = plain(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        params32 = tree_map(lambda x: x.float(), params)
+        ref_logits = reference(params32, {"tokens": tokens})
+        ref_prompt = reference(params32, {"tokens": prompt})
+        plain_prompt = plain(params, {"tokens": prompt})
+        del params32
+    torch.cuda.empty_cache()
+    floor = dist(plain_logits, ref_logits)
+    err = dist(flash, ref_logits)
+    agree, rows = argmax_agrees(flash, ref_logits, floor)
+    check(err <= 2 * floor, f"flash prefill {err:.4g} from the f32 reference, "
+          f"above 2x the bf16 floor {floor:.4g}")
+    check(agree, "flash prefill argmax differs from the f32 reference on a "
+          "row whose top-two gap exceeds 2x the floor")
+    print(f"lm reference: plain-attention bf16 prefill {plain_ms:.2f} ms; "
+          f"last-position logits (max |logit| {ref_logits.abs().max().item():.3g}) "
+          f"from the f32 reference: plain bf16 {floor:.4g} (the floor), "
+          f"flash {err:.4g} (<= 2x floor); argmax agrees on all {rows} of "
+          f"{LM_BATCH} rows whose top-two gap exceeds 2x the floor")
+
+    serve = make_serve_step(cfg)
+    cache_len = transformer.decode_cache_len(cfg, LM_CACHE)
+    states = transformer.init_decode_state(cfg, LM_BATCH, cache_len,
+                                           device=DEVICE)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(LM_PROMPT):
+            nxt, logits, states = serve(params, prompt[:, pos:pos + 1],
+                                        states, pos)
+        torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t0) / LM_PROMPT * 1e3
+    floor_p = dist(plain_prompt, ref_prompt)
+    err_p = dist(logits, ref_prompt)
+    agree, rows = argmax_agrees(logits, ref_prompt, floor_p)
+    check(err_p <= 2 * floor_p, f"decode at position {LM_PROMPT - 1}: "
+          f"{err_p:.4g} from the f32 reference, above 2x the floor {floor_p:.4g}")
+    check(agree, "decode argmax differs from the f32 reference on a row "
+          "whose top-two gap exceeds 2x the floor")
+    print(f"lm decode replay: {LM_PROMPT} prompt tokens one at a time through "
+          f"make_serve_step (cache {cache_len}), {replay_ms:.2f} ms/step; "
+          f"logits at position {LM_PROMPT - 1} from the f32 reference prefill "
+          f"of those tokens {err_p:.4g} (<= 2x the floor {floor_p:.4g}); "
+          f"argmax agrees on all {rows} rows above 2x the floor")
+
+    tok = nxt[:, None]
+    first = []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(LM_PROMPT, LM_PROMPT + LM_GREEDY):
+            nxt, logits, states = serve(params, tok, states, pos)
+            tok = nxt[:, None]
+            first.append(nxt)
+        torch.cuda.synchronize()
+        greedy_ms = (time.perf_counter() - t0) / LM_GREEDY * 1e3
+    check(bool(torch.isfinite(logits).all()), "decode logits not finite")
+    print(f"lm decode: {LM_GREEDY} greedy steps at positions {LM_PROMPT}.."
+          f"{LM_PROMPT + LM_GREEDY - 1}, {greedy_ms:.2f} ms/step "
+          f"({LM_BATCH * 1e3 / greedy_ms:.0f} tokens/s); tokens of row 0: "
+          f"{[int(t[0]) for t in first[:8]]}")
+
+    with torch.no_grad():
+        profile(torch, "prefill", "prefill",
+                lambda: prefill(params, {"tokens": tokens}), 1,
+                "flash_attention")
+        profile(torch, "decode", "step",
+                lambda: serve(params, tok, states, LM_PROMPT + LM_GREEDY - 1), 1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"lm phase: peak device memory {peak:.2f} GB")
     return launches
 
 
@@ -327,6 +599,7 @@ def main():
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch as rt
+    import repro_torch.configs
     import repro_torch.core
     import repro_torch.data
     import repro_torch.kernels.aggregate
@@ -334,10 +607,12 @@ def main():
     import repro_torch.optim
     import repro_torch.random
     from repro_torch.kernels.aggregate import ops, ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
 
     # Full f32 everywhere: no TF32 in matmuls or cuDNN convolutions, so
     # the kernel path and the matvec reference differ only in the order
-    # of the client sum.
+    # of the client sum, and the LM reference prefill is full f32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -349,24 +624,35 @@ def main():
     peaks = card_peaks(kind)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}; "
           f"peaks used for the bound: {peaks[0] / 1e12:.2f} TB/s, "
-          f"{peaks[1] / 1e12:.0f} TFLOP/s f32")
+          f"{peaks[1] / 1e12:.0f} TFLOP/s f32, {peaks[2] / 1e12:.0f} TFLOP/s "
+          f"bf16")
 
     t0 = time.perf_counter()
-    ops.load()
-    print(f"build: aggregate kernels in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for f in [pool.submit(ops.load), pool.submit(fa_ops.load)]:
+            f.result()
+    print(f"build: aggregate and flash-attention kernels in "
+          f"{time.perf_counter() - t0:.1f} s (one nvcc process for each "
+          f"source, both at once)")
 
     errs, timing = kernel_phase(torch, ops, ref, peaks)
-    launches = slice_phase(torch, rt)
+    launches = fig1_phase(torch, rt)
+    k3_err, k3_timing = k3_phase(torch, fa_ops, fa_ref, peaks)
+    launches["flash_attention"] = lm_phase(torch, rt, fa_ops)
 
-    names = {"k1": ("masked_scaled_aggregate",
+    names = {"k1": ("masked_scaled_aggregate", SOURCE,
                     "src/repro/kernels/aggregate/aggregate.py:77"),
-             "k2": ("masked_scaled_aggregate_update",
-                    "src/repro/kernels/aggregate/aggregate.py:128")}
+             "k2": ("masked_scaled_aggregate_update", SOURCE,
+                    "src/repro/kernels/aggregate/aggregate.py:128"),
+             "k3": ("flash_attention", K3_SOURCE,
+                    "src/repro/kernels/flash_attention/flash_attention.py:95")}
+    timing["k3"] = k3_timing
+    errs["k3"] = k3_err
     kernels = []
-    for key, (name, replaces) in names.items():
+    for key, (name, source, replaces) in names.items():
         t = timing[key]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[key], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

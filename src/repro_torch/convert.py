@@ -28,6 +28,11 @@ def _tensor(x, device):
     arr = np.asarray(x)
     if arr.dtype == np.uint32:  # PRNG key words: the port keeps them in int64
         arr = arr.astype(np.int64)
+    if arr.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16, which torch.from_numpy refuses: carry the
+        # 16-bit patterns over and reinterpret them, bit for bit.
+        bits = np.array(arr).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(arr)).to(device)
 
 

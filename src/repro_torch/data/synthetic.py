@@ -1,12 +1,13 @@
-"""The Fig-1 synthetic image task (numpy; a copy of the part of
-``repro.data.synthetic`` the slice needs, so the port imports nothing of
-the JAX package).
+"""Synthetic data (numpy; a copy of the parts of ``repro.data.synthetic``
+the port needs, so it imports nothing of the JAX package): the Fig-1
+image task and the Zipf-Markov token stream the LM prompts come from.
+The same seed gives the same arrays as the JAX package.
 
 CIFAR-10 is replaced by a class-structured synthetic task with the same
 tensor shapes (32×32×3, 10 classes): class ``c``'s prototype is mostly
 the shared confuser of its energy group plus a small unique part, so
 the weighting of the clients decides which class boundaries get
-resolved. The same seed gives the same arrays as the JAX package.
+resolved.
 """
 
 from __future__ import annotations
@@ -55,3 +56,37 @@ def make_confusable_image_classification(
         size=(n_examples, h, w, c)).astype(np.float32)
     return SyntheticImageDataset(images=images.astype(np.float32),
                                  labels=labels, n_classes=n_classes)
+
+
+class SyntheticLMDataset(NamedTuple):
+    tokens: np.ndarray  # (D, seq_len+1) int32 — shifted inside the model
+    vocab: int
+
+
+def make_lm_tokens(
+    seed: int,
+    n_sequences: int,
+    seq_len: int,
+    vocab: int,
+    *,
+    zipf_a: float = 1.2,
+    markov_order: bool = True,
+) -> SyntheticLMDataset:
+    """Zipf-Markov synthetic token stream.
+
+    Unigram distribution ~ Zipf(a); with ``markov_order`` each token is,
+    with probability 0.5, replaced by a deterministic shift of the
+    previous one (a cheap bigram structure).
+    """
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    base = 1.0 / ranks**zipf_a
+    base /= base.sum()
+    toks = np.empty((n_sequences, seq_len + 1), dtype=np.int32)
+    uni = rng.choice(vocab, size=(n_sequences, seq_len + 1), p=base).astype(np.int32)
+    if markov_order:
+        shift = (uni[:, :-1] * 31 + 7) % vocab
+        use = rng.random((n_sequences, seq_len)) < 0.5
+        uni[:, 1:] = np.where(use, shift, uni[:, 1:])
+    toks[:] = uni
+    return SyntheticLMDataset(tokens=toks, vocab=vocab)

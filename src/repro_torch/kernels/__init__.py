@@ -5,4 +5,6 @@ plain PyTorch version.
 
 * ``aggregate`` — masked/scaled client-gradient aggregation (paper
   eq. 11/12) and the fused reduce-and-update server step.
+* ``flash_attention`` — blockwise causal/windowed GQA attention on the
+  tensor cores, the LM prefill's attention.
 """

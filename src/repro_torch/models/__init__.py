@@ -1,4 +1,5 @@
-"""Models of the port: the Fig-1 CNN (the LM zoo waits, ROADMAP Queue 1
+"""Models of the port: the Fig-1 CNN and the LM stack of the ported
+block kinds (``attn_mlp``; the rest of the LM zoo waits, ROADMAP Queue 1
 item 12)."""
 
 from repro_torch.models.cnn import (
@@ -8,6 +9,15 @@ from repro_torch.models.cnn import (
     cnn_loss,
     init_cnn,
 )
+from repro_torch.models.common import count_params
+from repro_torch.models.transformer import (
+    decode_cache_len,
+    decode_step,
+    forward,
+    init_decode_state,
+    init_lm,
+)
 
 __all__ = ["init_cnn", "cnn_forward", "cnn_loss", "cnn_accuracy",
-           "client_grads_fn"]
+           "client_grads_fn", "count_params", "init_lm", "forward",
+           "init_decode_state", "decode_step", "decode_cache_len"]

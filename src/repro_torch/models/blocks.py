@@ -1,0 +1,140 @@
+"""Residual blocks — the units the stacks loop over.
+
+Port of ``repro.models.blocks`` for the ``attn_mlp`` block (pre-norm
+attention + MLP), the one block kind of the dense configs. Each kind
+provides::
+
+    init_<kind>(key, cfg)                     -> params
+    apply_<kind>(params, x, ctx, cfg)         -> (x, aux)
+    state_<kind>(cfg, batch, cache_len, dtype, device) -> decode state
+    decode_<kind>(params, x, state, pos, ctx, cfg)     -> (x, state)
+
+``ctx`` is a dict with: positions, window, use_flash. The other kinds
+of the JAX package (attn_moe, mamba2, mlstm, slstm, enc_attn_mlp,
+xattn) come with their configs; :func:`get_block` raises
+``NotImplementedError`` for them.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch import random as trandom
+from repro_torch.models.attention import (
+    attention,
+    decode_attention,
+    init_attention,
+    init_kv_cache,
+)
+from repro_torch.models.common import (
+    activation,
+    apply_norm,
+    dense,
+    dense_init,
+    norm_init,
+)
+
+#: Where the parts of the LM zoo the port does not run yet are queued.
+NOT_PORTED = "ROADMAP Queue 1 item 12"
+
+
+# ------------------------------------------------------------------- MLP
+
+def init_mlp(key, d_model, d_ff, dtype, use_bias=False, gated=True):
+    k1, k2, k3 = trandom.split(key, 3)
+    p = {"up": dense_init(k2, d_model, d_ff, dtype, use_bias),
+         "down": dense_init(k3, d_ff, d_model, dtype, use_bias)}
+    if gated:
+        p["gate"] = dense_init(k1, d_model, d_ff, dtype, use_bias)
+    return p
+
+
+def apply_mlp(params, x, act="silu"):
+    act_fn = activation(act)
+    h = dense(params["up"], x)
+    if "gate" in params:
+        h = act_fn(dense(params["gate"], x)) * h
+    else:
+        h = act_fn(h)
+    return dense(params["down"], h)
+
+
+def _attn_kwargs(cfg):
+    return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta)
+
+
+def _decode_attn_kwargs(cfg):
+    # decode applies rotary internally at `pos`; configs without rotary
+    # positions get positions=None on the prefill path.
+    return dict(_attn_kwargs(cfg), use_rope=(cfg.pos_embed == "rope"))
+
+
+# --------------------------------------------------------------- attn_mlp
+
+def init_attn_mlp(key, cfg):
+    k1, k2, _, _ = trandom.split(key, 4)
+    return {
+        "ln1": norm_init(cfg.d_model, cfg.dtype, cfg.norm, key.device),
+        "attn": init_attention(k1, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.resolved_head_dim, cfg.dtype, cfg.use_bias),
+        "ln2": norm_init(cfg.d_model, cfg.dtype, cfg.norm, key.device),
+        "mlp": init_mlp(k2, cfg.d_model, cfg.d_ff, cfg.dtype, cfg.use_bias,
+                        gated=cfg.gated_mlp),
+    }
+
+
+def apply_attn_mlp(params, x, ctx, cfg):
+    h = apply_norm(params["ln1"], x, cfg.norm)
+    h = attention(params["attn"], h, positions=ctx.get("positions"),
+                  causal=True, window=ctx.get("window", 0),
+                  use_flash=ctx.get("use_flash", False), **_attn_kwargs(cfg))
+    x = x + h
+    h = apply_norm(params["ln2"], x, cfg.norm)
+    x = x + apply_mlp(params["mlp"], h, act=cfg.act)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def state_attn_mlp(cfg, batch, cache_len, dtype, device=None):
+    return init_kv_cache(batch, cfg.n_kv_heads, cfg.resolved_head_dim,
+                         cache_len, dtype, device)
+
+
+def decode_attn_mlp(params, x, state, pos, ctx, cfg):
+    h = apply_norm(params["ln1"], x, cfg.norm)
+    h, state = decode_attention(params["attn"], h, state, pos,
+                                window=ctx.get("window", 0),
+                                **_decode_attn_kwargs(cfg))
+    x = x + h
+    h = apply_norm(params["ln2"], x, cfg.norm)
+    x = x + apply_mlp(params["mlp"], h, act=cfg.act)
+    return x, state
+
+
+# -------------------------------------------------------------- registry
+
+class BlockDef(NamedTuple):
+    init: Callable
+    apply: Callable
+    state: Optional[Callable] = None
+    decode: Optional[Callable] = None
+
+
+BLOCKS = {
+    "attn_mlp": BlockDef(init_attn_mlp, apply_attn_mlp, state_attn_mlp,
+                         decode_attn_mlp),
+}
+
+#: Block kinds of the JAX package that the port does not run yet.
+UNPORTED = ("attn_moe", "mamba2", "mlstm", "slstm", "enc_attn_mlp", "xattn")
+
+
+def get_block(kind: str) -> BlockDef:
+    if kind in BLOCKS:
+        return BLOCKS[kind]
+    if kind in UNPORTED:
+        raise NotImplementedError(
+            f"block kind {kind!r} is not ported yet ({NOT_PORTED})")
+    raise ValueError(f"unknown block kind {kind!r}")

@@ -1,16 +1,19 @@
-"""Shared model pieces: initializers and the dense layer.
+"""Shared model pieces: initializers, the dense layer, norms, rotary.
 
-Port of the part of ``repro.models.common`` the CNN needs. Parameters
-are plain nested dicts of tensors; every layer is an ``init_*(key, ...)
--> params`` plus a pure apply function. Dense weights are ``(d_in,
-d_out)``, as in the JAX package.
+Port of ``repro.models.common`` without its sharding hints (the port
+runs on one card) and without M-RoPE (qwen2-vl, ROADMAP Queue 1 item
+12). Parameters are plain nested dicts of tensors; every layer is an
+``init_*(key, ...) -> params`` plus a pure apply function. Dense weights
+are ``(d_in, d_out)``, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import random as trandom
+from repro_torch._tree import tree_leaves
 
 
 def normal_init(key, shape, dtype, stddev):
@@ -35,3 +38,57 @@ def dense(params, x):
     if "b" in params:
         y = y + params["b"]
     return y
+
+
+def norm_init(d, dtype, kind="rmsnorm", device=None):
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
+
+
+def apply_norm(params, x, kind="rmsnorm", eps=1e-6):
+    """RMSNorm or LayerNorm computed in f32 and cast back to ``x``'s
+    dtype, as the JAX package does (its eps is 1e-6 for both kinds)."""
+    xf = x.to(torch.float32)
+    if kind == "rmsnorm":
+        y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    else:  # layernorm
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].to(torch.float32)
+    if "bias" in params:
+        y = y + params["bias"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+def activation(name):
+    """``jax.nn.gelu`` defaults to the tanh approximation, so the port's
+    gelu does too."""
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "relu": F.relu}[name]
+
+
+def rope_freqs(head_dim, theta, device=None):
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x, positions, theta=1e4):
+    """Rotary embedding in the rotate-half layout over the full head dim.
+    x: (..., S, H, Dh); positions: broadcastable (..., S)."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)  # (Dh/2,)
+    ang = positions[..., None].to(torch.float32) * freqs  # (..., S, Dh/2)
+    ang = ang[..., None, :]  # head axis
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def count_params(tree) -> int:
+    return sum(x.numel() for x in tree_leaves(tree))

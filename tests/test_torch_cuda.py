@@ -1,4 +1,4 @@
-"""The port on the CUDA card: kernels K1/K2 and the slice, torch only.
+"""The port on the CUDA card: kernels K1/K2/K3 and the slices, torch only.
 
 Every test here needs a card (the CUDA kernels have no CPU mode), is
 marked ``cuda``, and skips inside the test when there is none. The file
@@ -13,6 +13,14 @@ gradients into f32 1e-5; bitwise inside the port for masked rows and
 for fused against unfused. The slice on the card is held against the
 same slice on the CPU to the CNN tolerance of ``test_torch_trainer.py``
 (``rtol=1e-4, atol=1e-5``), with TF32 off and cuDNN deterministic.
+
+K3 (flash attention) against its plain version computed in f32 from the
+same inputs: bf16 ``max|K3 − plain| ≤ 2**-7·max|plain|`` (p rounded to
+bf16 for the tensor-core product, and the output rounded), f32
+``rtol=atol=1e-5``; rows with no visible key exact zeros. The reduced
+stablelm serving slice on the card (f32, through K3) against the same
+slice on the CPU (through the plain version) to ``rtol=atol=1e-4``, the
+tolerance ``test_torch_lm.py`` holds the port to against JAX.
 """
 
 import numpy as np
@@ -23,7 +31,12 @@ from repro_torch import random as trandom
 from repro_torch.core import (ClientSimulator, DeterministicArrivals,
                               make_scheduler, ravel_pytree)
 from repro_torch.data import ClientBatcher
+from repro_torch.configs import get_config
 from repro_torch.kernels.aggregate import ops, ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.models import transformer
 from repro_torch.models.cnn import client_grads_fn, init_cnn
 from repro_torch.optim import sgd
 
@@ -157,3 +170,113 @@ def test_slice_on_card_matches_cpu(card):
     assert torch.equal(cuda_hist.participation.cpu(), cpu_hist.participation)
     torch.testing.assert_close(ravel_pytree(cuda_params).cpu(),
                                ravel_pytree(cpu_params), rtol=1e-4, atol=1e-5)
+
+
+K3_CASES = [  # (B, H, Hkv, S, T, Dh), causal, window, dtype
+    ((2, 8, 8, 512, 512, 64), True, 0, torch.bfloat16),
+    ((2, 8, 2, 256, 256, 128), True, 0, torch.bfloat16),
+    ((1, 4, 4, 1000, 1000, 64), True, 128, torch.bfloat16),
+    ((2, 4, 2, 100, 40, 64), False, 16, torch.bfloat16),
+    ((2, 4, 4, 200, 200, 64), False, 0, torch.float32),
+    ((1, 4, 1, 130, 70, 128), True, 0, torch.float32),
+    ((1, 2, 2, 1, 1, 64), True, 0, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("shape,causal,window,dtype", K3_CASES)
+def test_k3_matches_plain_version(card, shape, causal, window, dtype):
+    b, h, hkv, s, t, dh = shape
+    gen = torch.Generator(device="cuda").manual_seed(s + t + dh)
+    q = torch.randn(b, s, h, dh, device=card, generator=gen).to(dtype)
+    k = torch.randn(b, t, hkv, dh, device=card, generator=gen).to(dtype)
+    v = torch.randn(b, t, hkv, dh, device=card, generator=gen).to(dtype)
+    before = fa_ops.launch_counts["flash_attention"]
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa_ops.launch_counts["flash_attention"] == before + 1
+    want = fa_ref.flash_attention_ref(
+        q.float().transpose(1, 2), k.float().transpose(1, 2),
+        v.float().transpose(1, 2), causal=causal, window=window).transpose(1, 2)
+    assert out.dtype == dtype and out.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    else:
+        err = (out.float() - want).abs().max().item()
+        assert err <= 2 ** -7 * want.abs().max().item()
+    dead = ~fa_ref.visible_mask(s, t, causal=causal, window=window,
+                                device=card).any(dim=1)
+    assert torch.all(out[:, dead] == 0)
+
+
+def test_k3_wrapper_refuses_what_the_kernel_does_not_take(card):
+    q = torch.zeros(1, 8, 4, 64, device=card, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 8, 2, 64, device=card, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="dtype"):
+        fa_ops.flash_attention(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        fa_ops.flash_attention(q, kv[:, :, :1].expand(1, 8, 3, 64).contiguous(),
+                               kv[:, :, :1].expand(1, 8, 3, 64).contiguous())
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention(q[..., :32].contiguous(), kv[..., :32].contiguous(),
+                               kv[..., :32].contiguous())
+    with pytest.raises(ValueError, match="several devices"):
+        fa_ops.flash_attention(q, kv.cpu(), kv)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                               kv, kv)
+
+
+def test_lm_slice_on_card_matches_cpu(card):
+    """The reduced 2-layer stablelm (f32): flash prefill through K3 (one
+    launch a layer) and 8 greedy decode steps on the card agree with the
+    same calls on the CPU."""
+    cfg = get_config("stablelm-1.6b").reduced().replace(
+        superblock=(("attn_mlp", 2, False),), use_flash=True)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 48))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = transformer.init_lm(trandom.PRNGKey(0, device=dev), cfg)
+        tokens = torch.from_numpy(toks).to(dev)
+        before = fa_ops.launch_counts["flash_attention"]
+        logits = make_prefill_step(cfg)(params, {"tokens": tokens})
+        launched = fa_ops.launch_counts["flash_attention"] - before
+        serve = make_serve_step(cfg)
+        states = transformer.init_decode_state(cfg, 2, 8, device=dev)
+        tok, steps = tokens[:, :1], []
+        for pos in range(8):
+            nxt, step_logits, states = serve(params, tok, states, pos)
+            tok = nxt[:, None]
+            steps.append((nxt.cpu(), step_logits.cpu()))
+        out[dev] = (logits.cpu(), launched, steps)
+    assert out["cpu"][1] == 0 and out["cuda"][1] == cfg.total_layers
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-4)
+    for (tc, lc), (tg, lg) in zip(out["cpu"][2], out["cuda"][2]):
+        assert torch.equal(tg, tc)
+        torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+
+
+def test_decode_attention_reads_the_bf16_cache_in_place(card):
+    """One decode query against a bf16 head-major cache: the same numbers
+    as on the CPU, and no copy of the cache on the way, to f32 or to
+    another layout: the call's peak memory stays below the size of one
+    cache tensor. Both sides round p to bf16 from f32 logits summed in
+    different orders, so a p may round the other way: each output is
+    held to 2**-8·(Σ p|v| + |out|), one bf16 step of p on each side
+    and one of the output."""
+    from repro_torch.models.attention import _sdpa_heads
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn(2, 1, 8, 64, device="cuda", generator=gen).bfloat16()
+    k, v = (torch.randn(2, 4, 4096, 64, device="cuda", generator=gen).bfloat16()
+            for _ in range(2))
+    mask = torch.zeros(1, 4096, device="cuda")
+    mask[:, 3000:] = -1e30
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = _sdpa_heads(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < k.numel() * k.element_size()
+    want = _sdpa_heads(q.cpu(), k.cpu(), v.cpu(), mask.cpu()).float()
+    pv_abs = _sdpa_heads(q.cpu().float(), k.cpu().float(), v.cpu().float().abs(),
+                         mask.cpu())
+    err = (got.float().cpu() - want).abs()
+    assert (err <= 2 ** -8 * (pv_abs + want.abs())).all(), err.max()
