@@ -8,9 +8,10 @@ without printing its result line:
 
 1. Card check: a CUDA device is required; prints ``nvidia-smi``'s name
    and power limit.
-2. Build: compiles the aggregate kernels (``csrc/aggregate.cu``) and the
-   flash-attention kernel (``csrc/flash_attention.cu``) with nvcc, one
-   process for each source, both at once, and prints the seconds.
+2. Build: compiles the aggregate kernels (``csrc/aggregate.cu``), the
+   flash-attention kernel (``csrc/flash_attention.cu``) and the scan
+   kernel (``csrc/gla_scan.cu``) with nvcc, one process for each source,
+   all at once, and prints the seconds.
 3. Kernel phase, at the Fig-1 shape (N = 40 clients, P = 316,554 CNN
    parameters) and at a ragged P = 2,049: K1 (dense; masked with inf/NaN
    rows; bf16 gradients into f32) and K2 (update f32; update of bf16
@@ -37,7 +38,21 @@ without printing its result line:
    must be exact zeros). Times K3 at the prefill shape, flushed and
    warm, beside the plain version, ``F.scaled_dot_product_attention``
    and the bound.
-6. LM phase: stablelm-1.6b at full width (24 layers, d_model 2048, 32
+6. K4 phase: the gated-linear-recurrence scan through
+   ``repro_torch.kernels.ssm_scan.gla_scan`` at the full width of the two
+   layers it serves, B = 8 × S = 2,048, chunk 64: zamba2-2.7b's Mamba2
+   layer (H = 80, dk = dv = 64; a and v f32, k and q bf16, one row a
+   position broadcast over the heads with stride 0, as the block makes
+   them) and
+   xlstm-1.3b's mLSTM layer (H = 4, dk = 1,024, dv = 1,025; f32). The
+   K4 count is set to 0 before these two calls and must be 2 after. Both
+   outputs, a ragged S = 2,000, small decays (a log-uniform down to 1e-6,
+   with exact zeros for the 1e-12 clamp) and chunk 32 against chunk 64
+   are held against the plain sequential version on the card. Times K4
+   at both shapes, flushed and warm, beside the plain version, the port's
+   ``chunked_gla`` (the nearest comparator: no single PyTorch call
+   computes this function) and the bound.
+7. LM phase: stablelm-1.6b at full width (24 layers, d_model 2048, 32
    heads of 64, d_ff 5632, vocab 100352, bf16; random weights from a
    seed). Three prefills of B = 8 × S = 2,048 through
    ``make_prefill_step`` with ``use_flash=True``: the K3 count is set to
@@ -52,7 +67,7 @@ without printing its result line:
    reference prefill of those 448 tokens by the same rule, and 64
    greedy steps. ``torch.profiler`` over one prefill and one decode
    step, and the peak device memory.
-7. Prints the ``kernels`` JSON line, then the result line.
+8. Prints the ``kernels`` JSON line, then the result line.
 
 Tolerances: f32 aggregate kernels against the plain versions
 rtol=atol=1e-6 (the client sum runs in another order; weights at the
@@ -60,11 +75,15 @@ trainer's scale, Σω≈1); bf16 gradients into f32 1e-5; a bf16 result
 within one bf16 rounding step (relative 2**-8). K3 in bf16:
 max|K3 − plain_f32| ≤ 2**-7 · max|plain_f32| (two bf16 roundings: p for
 the tensor-core product, and the output); K3 in f32 rtol=atol=1e-5.
+K4 (f32 arithmetic on any mix of f32 and bf16 inputs, the same inputs
+for both sides): max|K4 − plain| ≤ 1e-4 · max|plain|, chunk 32 against
+chunk 64 likewise.
 TF32 is off for matmuls and convolutions, so every reference is full
 f32.
 """
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -75,6 +94,7 @@ ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 SOURCE = "src/repro_torch/kernels/aggregate/csrc/aggregate.cu"
 K3_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+K4_SOURCE = "src/repro_torch/kernels/ssm_scan/csrc/gla_scan.cu"
 N_CLIENTS, N_GROUPS, BATCH, LR = 40, 4, 16, 0.05
 N_TRAIN, N_TEST = 8000, 800
 STEPS, EVAL_EVERY, REF_STEPS, PROFILE_STEPS = 40, 20, 3, 10
@@ -103,15 +123,14 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def time_ms(torch, fn, flush):
-    """Mean ms per call over TIMED_LAUNCHES calls: (flushed, warm). The
-    flushed figure zeroes a 256 MB buffer before each call so no input
-    is left in the 50 MB L2; the warm figure runs the calls back to
-    back."""
-    for _ in range(3):
+def time_ms(torch, fn, flush, n=TIMED_LAUNCHES):
+    """Mean ms per call over ``n`` calls: (flushed, warm). The flushed
+    figure zeroes a 256 MB buffer before each call so no input is left
+    in the 50 MB L2; the warm figure runs the calls back to back."""
+    for _ in range(min(3, n)):
         fn()
     pairs = []
-    for _ in range(TIMED_LAUNCHES):
+    for _ in range(n):
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -122,12 +141,12 @@ def time_ms(torch, fn, flush):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(TIMED_LAUNCHES):
+    for _ in range(n):
         fn()
     end.record()
     torch.cuda.synchronize()
-    flushed = sum(s.elapsed_time(e) for s, e in pairs) / TIMED_LAUNCHES
-    return flushed, start.elapsed_time(end) / TIMED_LAUNCHES
+    flushed = sum(s.elapsed_time(e) for s, e in pairs) / n
+    return flushed, start.elapsed_time(end) / n
 
 
 def profile(torch, label, unit, fn, n_units, keep=None):
@@ -446,6 +465,155 @@ def k3_phase(torch, fa_ops, fa_ref, peaks):
     return max_err, timing
 
 
+K4_CASES = (  # label, (B, S, H, dk, dv), dtypes of a, k, v, q, shared k/q
+    # zamba2-2.7b's Mamba2 layer (d_model 2560, expand 2, head_dim 64):
+    # 80 heads, dk = d_state = 64, dv = head_dim = 64; a and v f32, k and
+    # q bf16, one B/C row a position broadcast over the 80 heads (stride
+    # 0), as the JAX block's _mamba2_preact feeds the scan.
+    ("zamba2-2.7b mamba2", (LM_BATCH, LM_SEQ, 80, 64, 64),
+     ("float32", "bfloat16", "float32", "bfloat16"), True),
+    # xlstm-1.3b's mLSTM layer: d_inner 4096 over 4 heads, dk = 1024 and
+    # dv = 1025 (v carries the normaliser column); all f32, k and q per head.
+    ("xlstm-1.3b mlstm", (LM_BATCH, LM_SEQ, 4, 1024, 1025), ("float32",) * 4,
+     False),
+)
+K4_CHUNK, K4_TOL = 64, 1e-4
+
+
+def k4_inputs(torch, gen, shape, dtypes, shared_kq, small_decay=False):
+    """a in [0.6, 1] (or log-uniform in [1e-6, 1] with every 61st position
+    exactly 0); k and q N(0, 1/dk); v N(0, 1); each in its dtype. With
+    ``shared_kq`` k and q hold one row a position, expanded over the heads
+    (stride 0)."""
+    b, s, h, dk, dv = shape
+    kq_heads = 1 if shared_kq else h
+    u = torch.rand(b, s, h, device=DEVICE, generator=gen)
+    if small_decay:
+        a = torch.exp(u * torch.log(torch.tensor(1e-6)))
+        a[:, ::61] = 0.0
+    else:
+        a = 0.6 + 0.4 * u
+    k = torch.randn(b, s, kq_heads, dk, device=DEVICE, generator=gen) * dk ** -0.5
+    q = torch.randn(b, s, kq_heads, dk, device=DEVICE, generator=gen) * dk ** -0.5
+    v = torch.randn(b, s, h, dv, device=DEVICE, generator=gen)
+    a, k, v, q = (x.to(getattr(torch, dt)) for x, dt in zip((a, k, v, q), dtypes))
+    return a, k.expand(b, s, h, dk), v, q.expand(b, s, h, dk)
+
+
+def k4_work(x):
+    """Operations and bytes of one scan at chunk 64: the four products,
+    the two intra-chunk ones over the causal half of each chunk. Where k
+    and q are both shared by the heads (stride 0) their dot products are
+    counted once a batch row, since only the decay differs by head. Each
+    operand is read once, a broadcast axis as one copy, and y written once
+    in f32."""
+    a, k, v, q = x
+    b, s, h = a.shape
+    dk, dv = k.shape[-1], v.shape[-1]
+    full, rest = divmod(s, K4_CHUNK)
+    pairs = full * K4_CHUNK * (K4_CHUNK + 1) // 2 + rest * (rest + 1) // 2
+    qk_heads = 1 if k.stride(2) == 0 and q.stride(2) == 0 else h
+    flops = b * (2 * pairs * (qk_heads * dk + h * dv) + 4 * h * s * dk * dv)
+    stored = lambda t: t.element_size() * math.prod(
+        n for n, st in zip(t.shape, t.stride()) if st)
+    nbytes = sum(stored(t) for t in x) + 4 * b * s * h * dv
+    return flops, nbytes
+
+
+def k4_phase(torch, ssm_ops, ssm_ref, chunked_gla, peaks):
+    """K4 through ``gla_scan`` at both full-width shapes (the counted main
+    path), the extra cases against the plain version, and the timings."""
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    max_err = 0.0
+
+    def plain(a, k, v, q):
+        b, s, h = a.shape
+        fold = lambda x: x.transpose(1, 2).reshape((b * h, s) + x.shape[3:])
+        y = ssm_ref.gla_scan_ref(fold(a), fold(k), fold(v), fold(q))
+        return y.reshape(b, h, s, v.shape[-1]).transpose(1, 2)
+
+    def held(label, x, y, want=None):
+        nonlocal max_err
+        want = plain(*x) if want is None else want
+        torch.cuda.synchronize()
+        check(y.dtype == torch.float32 and y.shape == x[2].shape,
+              f"K4 {label}: output {y.dtype} {tuple(y.shape)}")
+        check(bool(torch.isfinite(y).all()), f"K4 {label}: output not finite")
+        err = (y - want).abs().max().item()
+        top = want.abs().max().item()
+        check(err <= K4_TOL * top, f"K4 {label}: max abs err {err:.4g} above "
+              f"{K4_TOL} x max|plain| {top:.4g}")
+        max_err = max(max_err, err)
+        b, s, h, dk = x[1].shape
+        shared = ", k/q shared by the heads" if x[1].stride(2) == 0 else ""
+        print(f"k4 phase {label:<22} B,S,H,dk,dv={(b, s, h, dk, x[2].shape[-1])} "
+              f"{'/'.join(str(t.dtype)[6:] for t in x)}{shared}: agrees (max abs err "
+              f"{err:.3g}, {err / top:.3g} of max|plain| {top:.3g})")
+        return want
+
+    inputs = [k4_inputs(torch, gen, shape, dts, shared)
+              for _, shape, dts, shared in K4_CASES]
+    torch.cuda.synchronize()
+    # The main path: one scan at each shape, counted.
+    ssm_ops.reset_launch_counts()
+    outs = [ssm_ops.gla_scan(*x, chunk=K4_CHUNK) for x in inputs]
+    torch.cuda.synchronize()
+    launches = ssm_ops.launch_counts["gla_scan"]
+    check(launches == len(K4_CASES),
+          f"K4 launches {launches}, expected {len(K4_CASES)}")
+    print(f"k4 main path: {launches} K4 launches for the {len(K4_CASES)} "
+          f"full-width scans")
+    for (label, *_), x, y in zip(K4_CASES, inputs, outs):
+        held(label, x, y)
+    del outs
+
+    zamba, xlstm = K4_CASES[0][2:], K4_CASES[1][2:]
+    x = k4_inputs(torch, gen, (2, 2000, 80, 64, 64), *zamba)
+    held("ragged S=2000", x, ssm_ops.gla_scan(*x, chunk=K4_CHUNK))
+    x = k4_inputs(torch, gen, (2, 1024, 80, 64, 64), *zamba, small_decay=True)
+    held("small decay", x, ssm_ops.gla_scan(*x, chunk=K4_CHUNK))
+    x = k4_inputs(torch, gen, (1, 512, 4, 1024, 1025), *xlstm)
+    y64 = ssm_ops.gla_scan(*x, chunk=64)
+    want = held("chunk 64", x, y64)
+    y32 = ssm_ops.gla_scan(*x, chunk=32)
+    held("chunk 32", x, y32, want)
+    diff = (y32 - y64).abs().max().item()
+    check(diff <= K4_TOL * want.abs().max().item(),
+          f"K4 chunk 32 against chunk 64: {diff:.4g}")
+    print(f"k4 phase chunk invariance: chunk 32 against chunk 64 max abs "
+          f"diff {diff:.3g}")
+    del x, want, y32, y64
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=DEVICE)
+    timing = {}
+    for (label, *_), x in zip(K4_CASES, inputs):
+        fns = (lambda: ssm_ops.gla_scan(*x, chunk=K4_CHUNK),
+               lambda: plain(*x),
+               lambda: chunked_gla(*x, chunk=K4_CHUNK))
+        with torch.no_grad():
+            times = [time_ms(torch, fn, flush, n)
+                     for fn, n in zip(fns, (TIMED_LAUNCHES, 2, 10))]
+        flops, nbytes = k4_work(x)
+        bound_f, bound_b = flops / peaks[1] * 1e3, nbytes / peaks[0] * 1e3
+        timing[label] = {
+            "ms": times[0][0], "warm_ms": times[0][1],
+            "plain_ms": times[1][0], "plain_warm_ms": times[1][1],
+            "comparator_ms": times[2][0], "comparator_warm_ms": times[2][1],
+            "bound_ms": max(bound_f, bound_b),
+            "bound_by": "operations" if bound_f >= bound_b else "bytes"}
+        print(f"time k4 {label} (L2 flushed | warm, ms): kernel "
+              f"{times[0][0]:.4f} | {times[0][1]:.4f}, plain {times[1][0]:.2f} "
+              f"| {times[1][1]:.2f}, nearest comparator (chunked_gla) "
+              f"{times[2][0]:.4f} | {times[2][1]:.4f}, library call none, "
+              f"bound {timing[label]['bound_ms']:.4f} ({flops / 1e9:.1f} GFLOP "
+              f"f32, {nbytes / 1e6:.0f} MB; {flops / times[0][0] / 1e9:.2f} "
+              f"TFLOP/s achieved flushed)")
+    del inputs, flush
+    torch.cuda.empty_cache()
+    print(f"k4 phase: largest abs error {max_err:.4g}")
+    return launches, max_err, timing
+
+
 def lm_phase(torch, rt, fa_ops):
     """stablelm-1.6b at full width: flash prefill through K3, the f32
     reference, decode through the KV cache, the profile."""
@@ -609,6 +777,9 @@ def main():
     from repro_torch.kernels.aggregate import ops, ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.kernels.ssm_scan import ref as ssm_ref
+    from repro_torch.models.ssm import chunked_gla
 
     # Full f32 everywhere: no TF32 in matmuls or cuDNN convolutions, so
     # the kernel path and the matvec reference differ only in the order
@@ -628,16 +799,18 @@ def main():
           f"bf16")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for f in [pool.submit(ops.load), pool.submit(fa_ops.load)]:
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        for f in [pool.submit(m.load) for m in (ops, fa_ops, ssm_ops)]:
             f.result()
-    print(f"build: aggregate and flash-attention kernels in "
+    print(f"build: aggregate, flash-attention and scan kernels in "
           f"{time.perf_counter() - t0:.1f} s (one nvcc process for each "
-          f"source, both at once)")
+          f"source, all at once)")
 
     errs, timing = kernel_phase(torch, ops, ref, peaks)
     launches = fig1_phase(torch, rt)
     k3_err, k3_timing = k3_phase(torch, fa_ops, fa_ref, peaks)
+    launches["gla_scan"], k4_err, k4_timing = k4_phase(
+        torch, ssm_ops, ssm_ref, chunked_gla, peaks)
     launches["flash_attention"] = lm_phase(torch, rt, fa_ops)
 
     names = {"k1": ("masked_scaled_aggregate", SOURCE,
@@ -659,6 +832,23 @@ def main():
             "library_ms": t["library_ms"], "warm_ms": t["warm_ms"],
             "plain_warm_ms": t["plain_warm_ms"],
             "library_warm_ms": t["library_warm_ms"]})
+    # K4's main path is one scan at each of two shapes: its times and bound
+    # are the sums over both, and each shape's own numbers follow.
+    total = lambda key: sum(t[key] for t in k4_timing.values())
+    kernels.append({
+        "name": "gla_scan", "route": "cuda", "source": K4_SOURCE,
+        "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:65",
+        "launches": launches["gla_scan"], "max_abs_err": k4_err,
+        "ms": total("ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": total("bound_ms"), "bound_by": "operations"
+        if all(t["bound_by"] == "operations" for t in k4_timing.values())
+        else "bytes",
+        "library_ms": None, "warm_ms": total("warm_ms"),
+        "plain_warm_ms": total("plain_warm_ms"),
+        "comparator": "repro_torch.models.ssm.chunked_gla",
+        "comparator_ms": total("comparator_ms"),
+        "comparator_warm_ms": total("comparator_warm_ms"),
+        "shapes": k4_timing})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

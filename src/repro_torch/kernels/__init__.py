@@ -7,4 +7,6 @@ plain PyTorch version.
   eq. 11/12) and the fused reduce-and-update server step.
 * ``flash_attention`` — blockwise causal/windowed GQA attention on the
   tensor cores, the LM prefill's attention.
+* ``ssm_scan`` — the chunked gated-linear-recurrence scan (Mamba2 SSD /
+  mLSTM), the state slice carried in shared memory along the sequence.
 """

@@ -1,4 +1,4 @@
-"""The port on the CUDA card: kernels K1/K2/K3 and the slices, torch only.
+"""The port on the CUDA card: kernels K1–K4 and the slices, torch only.
 
 Every test here needs a card (the CUDA kernels have no CPU mode), is
 marked ``cuda``, and skips inside the test when there is none. The file
@@ -21,6 +21,10 @@ bf16 for the tensor-core product, and the output rounded), f32
 stablelm serving slice on the card (f32, through K3) against the same
 slice on the CPU (through the plain version) to ``rtol=atol=1e-4``, the
 tolerance ``test_torch_lm.py`` holds the port to against JAX.
+
+K4 (the gated-linear-recurrence scan) against its plain sequential
+version on the same inputs: ``max|K4 − plain| ≤ 1e-4·max|plain|``, as in
+``chip_smoke.py``; strided views bitwise equal to contiguous copies.
 """
 
 import numpy as np
@@ -35,9 +39,12 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.aggregate import ops, ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.ssm_scan import ops as ssm_ops
+from repro_torch.kernels.ssm_scan import ref as ssm_ref
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import transformer
 from repro_torch.models.cnn import client_grads_fn, init_cnn
+from repro_torch.models.ssm import chunked_gla
 from repro_torch.optim import sgd
 
 pytestmark = pytest.mark.cuda
@@ -280,3 +287,130 @@ def test_decode_attention_reads_the_bf16_cache_in_place(card):
                          mask.cpu())
     err = (got.float().cpu() - want).abs()
     assert (err <= 2 ** -8 * (pv_abs + want.abs())).all(), err.max()
+
+
+F32, KQ_BF16 = ("float32",) * 4, ("float32", "bfloat16", "float32", "bfloat16")
+K4_CASES = [  # (B, S, H, dk, dv), chunk, dtypes of a, k, v, q
+    ((2, 100, 3, 40, 33), 16, F32),
+    ((2, 100, 3, 40, 33), 32, F32),
+    ((1, 77, 2, 16, 17), 32, KQ_BF16),
+    ((2, 130, 2, 64, 64), 64, ("bfloat16",) * 4),
+    ((1, 70, 2, 1024, 1025), 64, F32),      # xlstm width, ragged S and dv
+    ((1, 70, 1, 608, 40), 64, F32),         # two blocks an SM up to here,
+    ((1, 70, 1, 640, 40), 64, KQ_BF16),     # one from here on
+    ((1, 65, 1, 1536, 40), 64, KQ_BF16),    # the largest dk
+    ((1, 1, 1, 8, 1), 16, F32),
+]
+
+
+def _k4_inputs(shape, dtypes, seed, small_decay=False):
+    b, s, h, dk, dv = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.rand(b, s, h, device="cuda", generator=gen)
+    if small_decay:  # log-uniform down to 1e-6, and exact zeros for the clamp
+        a = torch.exp(u * torch.log(torch.tensor(1e-6)))
+        a[:, ::13] = 0.0
+    else:
+        a = 0.6 + 0.4 * u
+    k = torch.randn(b, s, h, dk, device="cuda", generator=gen) * dk ** -0.5
+    q = torch.randn(b, s, h, dk, device="cuda", generator=gen) * dk ** -0.5
+    v = torch.randn(b, s, h, dv, device="cuda", generator=gen)
+    return tuple(x.to(getattr(torch, d)) for x, d in zip((a, k, v, q), dtypes))
+
+
+def _k4_plain(a, k, v, q):
+    b, s, h = a.shape
+    fold = lambda x: x.transpose(1, 2).reshape((b * h, s) + x.shape[3:])
+    y = ssm_ref.gla_scan_ref(fold(a), fold(k), fold(v), fold(q))
+    return y.reshape(b, h, s, v.shape[-1]).transpose(1, 2)
+
+
+def _k4_agrees(y, want):
+    assert y.dtype == torch.float32 and y.shape == want.shape
+    assert torch.isfinite(y).all()
+    err = (y - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("shape,chunk,dtypes", K4_CASES)
+def test_k4_matches_plain_version(card, shape, chunk, dtypes):
+    x = _k4_inputs(shape, dtypes, seed=sum(shape) + chunk)
+    before = ssm_ops.launch_counts["gla_scan"]
+    y = ssm_ops.gla_scan(*x, chunk=chunk)
+    assert ssm_ops.launch_counts["gla_scan"] == before + 1
+    _k4_agrees(y, _k4_plain(*x))
+    assert torch.equal(y, ssm_ops.gla_scan(*x, chunk=chunk))  # deterministic
+
+
+def test_k4_small_decays_and_chunk_invariance(card):
+    """Decays down to 1e-6 (exp(la_t − la_s) overflows above the
+    diagonal) and exact zeros (the 1e-12 clamp): finite and within the
+    tolerance at every chunk, each chunk against chunk 64 too."""
+    x = _k4_inputs((2, 300, 3, 64, 48), KQ_BF16, seed=11, small_decay=True)
+    want = _k4_plain(*x)
+    y64 = ssm_ops.gla_scan(*x, chunk=64)
+    for chunk in ssm_ops.CHUNKS:
+        y = ssm_ops.gla_scan(*x, chunk=chunk)
+        _k4_agrees(y, want)
+        _k4_agrees(y, y64)
+
+
+def test_k4_reads_strided_views_in_place(card):
+    """k and q broadcast over heads (stride 0, as the Mamba2 block makes
+    them), v and a slices of wider tensors: the same bits as contiguous
+    copies of the same values."""
+    b, s, h, dk, dv = 2, 90, 4, 32, 20
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    a = (0.6 + 0.4 * torch.rand(b, h, s, device="cuda", generator=gen)).transpose(1, 2)
+    kb = torch.randn(b, s, 1, dk, device="cuda", generator=gen).bfloat16()
+    qb = torch.randn(b, s, 1, dk, device="cuda", generator=gen).bfloat16()
+    k, q = kb.expand(b, s, h, dk), qb.expand(b, s, h, dk)
+    v = torch.randn(b, s, h, 3 * dv, device="cuda", generator=gen)[..., dv:2 * dv]
+    assert not any(t.is_contiguous() for t in (a, k, v, q))
+    y = ssm_ops.gla_scan(a, k, v, q, chunk=32)
+    dense = ssm_ops.gla_scan(*(t.contiguous() for t in (a, k, v, q)), chunk=32)
+    assert torch.equal(y, dense)
+    _k4_agrees(y, _k4_plain(a, k, v, q))
+
+
+def test_k4_makes_no_f32_copy_of_bf16_operands(card):
+    """bf16 k and q are upcast in registers: the call's peak memory
+    stays below the output plus one f32 copy of k."""
+    x = _k4_inputs((1, 4096, 4, 512, 16), KQ_BF16, seed=13)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = ssm_ops.gla_scan(*x)
+    torch.cuda.synchronize()
+    k_f32 = x[1].numel() * 4
+    assert torch.cuda.max_memory_allocated() - base < y.numel() * 4 + k_f32
+    _k4_agrees(y, _k4_plain(*x))
+
+
+def test_k4_wrapper_refuses_what_the_kernel_does_not_take(card):
+    a = torch.ones(1, 8, 2, device=card)
+    k = torch.zeros(1, 8, 2, 16, device=card)
+    v = torch.zeros(1, 8, 2, 4, device=card)
+    before = ssm_ops.launch_counts["gla_scan"]
+    for chunk in (8, 128):
+        with pytest.raises(ValueError, match="chunk"):
+            ssm_ops.gla_scan(a, k, v, k, chunk=chunk)
+    with pytest.raises(TypeError, match="q must be"):
+        ssm_ops.gla_scan(a, k, v, k.half())
+    big = torch.zeros(1, 8, 2, ssm_ops.MAX_DK + 1, device=card)
+    with pytest.raises(ValueError, match="dk"):
+        ssm_ops.gla_scan(a, big, v, big)
+    with pytest.raises(ValueError, match="several devices"):
+        ssm_ops.gla_scan(a, k, v.cpu(), k)
+    assert ssm_ops.launch_counts["gla_scan"] == before
+
+
+def test_chunked_gla_on_card_matches_kernel(card):
+    """The port's GLA engine on the card (cuBLAS einsums, TF32 off)
+    against K4 and the plain version."""
+    x = _k4_inputs((2, 200, 3, 64, 65), KQ_BF16, seed=14)
+    want = _k4_plain(*x)
+    y, hf = chunked_gla(*x, chunk=64)
+    _k4_agrees(y, want)
+    _k4_agrees(ssm_ops.gla_scan(*x, chunk=64), y)
+    assert hf.shape == (2, 3, 64, 65) and torch.isfinite(hf).all()
