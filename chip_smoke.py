@@ -11,7 +11,11 @@ without printing its result line:
 2. Build: compiles the aggregate kernels (``csrc/aggregate.cu``), the
    flash-attention kernel (``csrc/flash_attention.cu``) and the scan
    kernel (``csrc/gla_scan.cu``) with nvcc, one process for each source,
-   all at once, and prints the seconds.
+   all at once, and prints the seconds. For K3 it prints ptxas's
+   registers and spills of the bf16 kernels and fails on a spill or a
+   setmaxnreg or wgmma-serialisation warning (C7508, C7520), and counts
+   their HGMMA and UTMALDG instructions in the SASS (cuobjdump), which
+   must not be 0.
 3. Kernel phase, at the Fig-1 shape (N = 40 clients, P = 316,554 CNN
    parameters) and at a ragged P = 2,049: K1 (dense; masked with inf/NaN
    rows; bf16 gradients into f32) and K2 (update f32; update of bf16
@@ -32,12 +36,16 @@ without printing its result line:
    step's device time goes and the device's busy share.
 5. K3 phase: the flash-attention kernel against its plain version
    computed in f32 from the same inputs, at the prefill shape of the LM
-   phase (B = 8, H = 32, S = T = 2,048, Dh = 64, causal, bf16), GQA 24/8
-   with Dh = 128, a 512 window, bidirectional f32, ragged S = T = 1,000,
-   and S = 100 against T = 40 with a 16 window (rows that see no key
-   must be exact zeros). Times K3 at the prefill shape, flushed and
-   warm, beside the plain version, ``F.scaled_dot_product_attention``
-   and the bound.
+   phase (B = 8, H = 32, S = T = 2,048, Dh = 64, causal, bf16),
+   minitron-4b's attention at the same B and S (H = 24, Hkv = 8,
+   Dh = 128, causal: the GQA shape of the later models), GQA 24/8 with
+   Dh = 128, a 512 window, bidirectional f32, ragged S = T = 1,000, and
+   S = 100 against T = 40 with a 16 window (rows that see no key must be
+   exact zeros). Times K3 at the first two shapes, flushed and warm,
+   beside the plain version, ``F.scaled_dot_product_attention`` and the
+   bound, with the achieved TFLOP/s, the share of the bound, and the
+   time the exponentials take at the MUFU rate (one ex2 per visible
+   score, 16 a clock per SM at the card's top SM clock).
 6. K4 phase: the gated-linear-recurrence scan through
    ``repro_torch.kernels.ssm_scan.gla_scan`` at the full width of the two
    layers it serves, B = 8 × S = 2,048, chunk 64: zamba2-2.7b's Mamba2
@@ -384,22 +392,64 @@ def fig1_phase(torch, rt):
 
 K3_CASES = (  # label, (B, H, Hkv, S, T, Dh), causal, window, dtype name
     ("prefill shape", (LM_BATCH, 32, 32, LM_SEQ, LM_SEQ, 64), True, 0, "bfloat16"),
+    # src/repro/configs/minitron_4b.py: 24 query heads over 8 kv heads of 128.
+    ("minitron-4b", (LM_BATCH, 24, 8, LM_SEQ, LM_SEQ, 128), True, 0, "bfloat16"),
     ("GQA 24/8 Dh=128", (2, 24, 8, 1024, 1024, 128), True, 0, "bfloat16"),
     ("window 512", (2, 32, 32, 2048, 2048, 64), True, 512, "bfloat16"),
     ("bidirectional f32", (2, 8, 8, 512, 512, 64), False, 0, "float32"),
     ("ragged S=T=1000", (2, 32, 32, 1000, 1000, 64), True, 0, "bfloat16"),
     ("rows with no key", (2, 4, 2, 100, 40, 64), False, 16, "bfloat16"),
 )
+K3_TIMED = ("prefill shape", "minitron-4b")
+# MUFU ex2 results a clock per SM on compute capability 9.0 (CUDA C++
+# programming guide, arithmetic instruction throughput).
+MUFU_PER_CLOCK = 16
 
 
-def k3_phase(torch, fa_ops, fa_ref, peaks):
+def k3_build_report(build, fa_ops):
+    """ptxas's registers and spills and the SASS's HGMMA and UTMALDG
+    counts of the bf16 K3 kernels; fails on a spill, a C7508 (setmaxnreg
+    ignored) or C7520 (wgmma serialised) warning, or a kernel without
+    wgmma or TMA."""
+    log = build.build_log(fa_ops.SOURCE)
+    for code in ("C7508", "C7520"):
+        check(code not in log, f"K3 build: ptxas warns {code}:\n{log}")
+    funcs, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "spill stores" in line:
+            funcs[name] = [line.strip()]
+        elif name and "Used" in line and "registers" in line:
+            funcs[name].append(line.split(":", 1)[1].strip())
+    cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass",
+                           str(build.library_path(fa_ops.SOURCE))],
+                          capture_output=True, text=True, check=True).stdout
+    bodies = {b.split("\n", 1)[0].strip(): b for b in sass.split("Function : ")[1:]}
+    for dh in (64, 128):
+        tag = f"flash_attention_bf16ILi{dh}E"
+        fn = next(f for f in funcs if tag in f)
+        body = next(b for n, b in bodies.items() if tag in n)
+        spills, regs = funcs[fn]
+        counts = {op: body.count(op) for op in ("HGMMA", "UTMALDG", "USETMAXREG")}
+        check(spills.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+              f"K3 bf16 Dh={dh} spills: {spills}")
+        check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+              f"K3 bf16 Dh={dh}: SASS without wgmma or TMA {counts}")
+        print(f"k3 build: bf16 Dh={dh}: ptxas {regs} (entry count; setmaxnreg "
+              f"moves consumers to 232), {spills}; SASS {counts}")
+
+
+def k3_phase(torch, fa_ops, fa_ref, peaks, sm_clock_hz):
     """K3 against its plain version (in f32, same inputs) at every case;
-    timings at the prefill shape."""
+    timings at the shapes of K3_TIMED."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=DEVICE).manual_seed(3)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     max_err = 0.0
-    timing = None
+    timing = {}
     for label, (b, h, hkv, s, t, dh), causal, window, dt in K3_CASES:
         dtype = getattr(torch, dt)
         q = torch.randn(b, s, h, dh, device=DEVICE, generator=gen).to(dtype)
@@ -432,35 +482,47 @@ def k3_phase(torch, fa_ops, fa_ref, peaks):
         print(f"k3 phase {label:<18} B,H,Hkv,S,T,Dh={(b, h, hkv, s, t, dh)} "
               f"causal={causal} window={window} {dt}: agrees "
               f"(max abs err {err:.3g}, {how})")
-        if label != "prefill shape":
+        if label not in K3_TIMED:
             continue
+        del want
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=DEVICE)
         fns = (lambda: fa_ops.flash_attention(q, k, v, causal=True),
                lambda: fa_ref.flash_attention_ref(qt, kt, vt, causal=True),
-               lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+               lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=hkv != h))
         with torch.no_grad():
             times = [time_ms(torch, fn, flush) for fn in fns]
-        # The work this run's inputs need: the two products over the
-        # visible (query, key) pairs only, and q, k, v, out moved once.
+        # The work this run's inputs need: the two products and one
+        # exponential over the visible (query, key) pairs only, and q, k,
+        # v, out moved once.
         pairs = int(fa_ref.visible_mask(s, t, causal=True, window=0,
                                         device=DEVICE).sum())
         flops = 4 * b * h * dh * pairs
         nbytes = 2 * (2 * b * s * h * dh + 2 * b * t * hkv * dh)
         bound_f, bound_b = flops / peaks[2] * 1e3, nbytes / peaks[0] * 1e3
-        timing = {
+        exp_ms = b * h * pairs / (MUFU_PER_CLOCK * n_sm * sm_clock_hz) * 1e3
+        tflops = flops / times[0][0] / 1e9
+        timing[label] = {
             "ms": times[0][0], "plain_ms": times[1][0],
             "library_ms": times[2][0], "warm_ms": times[0][1],
             "plain_warm_ms": times[1][1], "library_warm_ms": times[2][1],
             "bound_ms": max(bound_f, bound_b),
-            "bound_by": "operations" if bound_f >= bound_b else "bytes"}
-        print(f"time k3 (L2 flushed | warm, ms): kernel {times[0][0]:.4f} | "
-              f"{times[0][1]:.4f}, plain {times[1][0]:.4f} | {times[1][1]:.4f}, "
-              f"library (F.scaled_dot_product_attention) {times[2][0]:.4f} | "
-              f"{times[2][1]:.4f}, bound {timing['bound_ms']:.4f} "
-              f"({flops / 1e9:.1f} GFLOP bf16, {nbytes / 1e6:.0f} MB; "
-              f"{flops / times[0][0] / 1e9:.1f} TFLOP/s achieved flushed)")
-        del q, k, v, out, want, flush
+            "bound_by": "operations" if bound_f >= bound_b else "bytes",
+            "shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "T": t, "Dh": dh,
+                      "causal": True}}
+        print(f"time k3 {label} (L2 flushed | warm, ms): kernel "
+              f"{times[0][0]:.4f} | {times[0][1]:.4f}, plain {times[1][0]:.4f} "
+              f"| {times[1][1]:.4f}, library (F.scaled_dot_product_attention) "
+              f"{times[2][0]:.4f} | {times[2][1]:.4f}, bound "
+              f"{timing[label]['bound_ms']:.4f} ({flops / 1e9:.1f} GFLOP bf16, "
+              f"{nbytes / 1e6:.0f} MB); {tflops:.1f} TFLOP/s achieved flushed, "
+              f"{100 * timing[label]['bound_ms'] / times[0][0]:.1f} % of the "
+              f"bound; {b * h * pairs / 1e6:.0f} M exponentials take "
+              f"{exp_ms:.4f} ms at the MUFU rate ({MUFU_PER_CLOCK} a clock x "
+              f"{n_sm} SMs x {sm_clock_hz / 1e6:.0f} MHz) beside the "
+              f"tensor-core bound {bound_f:.4f} ms")
+        del q, k, v, out, flush
     print(f"k3 phase: largest abs error {max_err:.4g}")
     return max_err, timing
 
@@ -774,6 +836,7 @@ def main():
     import repro_torch.models
     import repro_torch.optim
     import repro_torch.random
+    from repro_torch.kernels import _build
     from repro_torch.kernels.aggregate import ops, ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -791,6 +854,10 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    sm_clock_hz = float(clock.stdout.strip().splitlines()[0]) * 1e6
     kind = torch.cuda.get_device_name(0)
     peaks = card_peaks(kind)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}; "
@@ -805,10 +872,11 @@ def main():
     print(f"build: aggregate, flash-attention and scan kernels in "
           f"{time.perf_counter() - t0:.1f} s (one nvcc process for each "
           f"source, all at once)")
+    k3_build_report(_build, fa_ops)
 
     errs, timing = kernel_phase(torch, ops, ref, peaks)
     launches = fig1_phase(torch, rt)
-    k3_err, k3_timing = k3_phase(torch, fa_ops, fa_ref, peaks)
+    k3_err, k3_timing = k3_phase(torch, fa_ops, fa_ref, peaks, sm_clock_hz)
     launches["gla_scan"], k4_err, k4_timing = k4_phase(
         torch, ssm_ops, ssm_ref, chunked_gla, peaks)
     launches["flash_attention"] = lm_phase(torch, rt, fa_ops)
@@ -819,7 +887,9 @@ def main():
                     "src/repro/kernels/aggregate/aggregate.py:128"),
              "k3": ("flash_attention", K3_SOURCE,
                     "src/repro/kernels/flash_attention/flash_attention.py:95")}
-    timing["k3"] = k3_timing
+    # K3's main path is the stablelm prefill, so its line carries the
+    # prefill shape's numbers; each timed shape's own follow.
+    timing["k3"] = k3_timing["prefill shape"]
     errs["k3"] = k3_err
     kernels = []
     for key, (name, source, replaces) in names.items():
@@ -832,6 +902,8 @@ def main():
             "library_ms": t["library_ms"], "warm_ms": t["warm_ms"],
             "plain_warm_ms": t["plain_warm_ms"],
             "library_warm_ms": t["library_warm_ms"]})
+        if key == "k3":
+            kernels[-1]["shapes"] = k3_timing
     # K4's main path is one scan at each of two shapes: its times and bound
     # are the sums over both, and each shape's own numbers follow.
     total = lambda key: sum(t[key] for t in k4_timing.values())

@@ -3,9 +3,15 @@
 Each kernel package keeps its CUDA C++ under ``csrc/`` with a plain C
 interface (no PyTorch headers, so a build takes seconds). The shared
 library is written to ``src/repro_torch/_build/`` (listed in
-``.gitignore``) under a name that carries a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is loaded as
-it is. The target is Hopper, ``sm_90a``.
+``.gitignore``) under a name that carries a hash of every file in the
+source's ``csrc/`` directory (the source and any header beside it) and
+of the flags, so an edited source or header is rebuilt and an unchanged
+one is loaded as it is. ptxas reports each kernel's registers, shared
+memory and spills (``-Xptxas -v``); the report is kept beside the
+library (:func:`build_log`). The target is Hopper, ``sm_90a``. No
+library is linked: a kernel that needs a driver function (TMA's
+``cuTensorMapEncodeTiled``) reaches it through the runtime's
+``cudaGetDriverEntryPoint``.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def nvcc() -> str:
@@ -37,9 +43,23 @@ def nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
+    """Where the library of ``source`` is built: its name hashes the
+    flags and every file under the source's directory, by relative path
+    and content."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    root = source.parent
+    for path in sorted(p for p in root.rglob("*") if p.is_file()):
+        name = path.relative_to(root).as_posix().encode()
+        digest.update(len(name).to_bytes(8, "little") + name)
+        data = path.read_bytes()
+        digest.update(len(data).to_bytes(8, "little") + data)
+    return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def build_log(source: Path) -> str:
+    """nvcc's report (ptxas registers, shared memory, spills and any
+    warning) from the build of ``source``'s current library."""
+    return library_path(source).with_suffix(".log").read_text()
 
 
 def compile_library(source: Path) -> Path:
@@ -58,6 +78,7 @@ def compile_library(source: Path) -> Path:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}) building {source.name}:\n"
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
 

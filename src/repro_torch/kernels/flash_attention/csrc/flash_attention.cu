@@ -17,40 +17,79 @@
 // (B = 8, H = 32, S = T = 2048, Dh = 64, causal, bf16) the two products
 // are 4*B*H*Dh * (S*(S+1)/2) = 137.5 GFLOP against 268 MB of q, k, v and
 // out: 0.139 ms at 989 TFLOP/s (bf16 tensor cores) against 0.080 ms at
-// 3.35 TB/s.
-// What the design does about it: both products run on the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 accumulate); k and v are read from
-// device memory once per 128-row query tile and shared by its 8 warps;
-// tiles wholly above the causal diagonal or outside the window are never
-// visited, and the element mask is only evaluated on tiles that cut a
-// mask edge (diagonal, window edge, ragged T). The next k/v tile is
-// copied (cp.async, double-buffered) while the current one is computed.
-// Query tiles are issued heaviest first so the causal tail does not
-// leave the card idle. A later change can move to wgmma, TMA and warp
-// specialisation.
+// 3.35 TB/s. At Dh = 64 the exponentials are as long: one ex2 per score,
+// 537 M of them at 16 a clock per SM, about 0.13 ms.
 //
-// bf16 path, one CUDA block per (head, batch, 128-row query tile): 8
-// warps, 16 query rows each. S = Q K^T for a 64-key tile is (D/16) x 8
-// mma's per warp; p = 2^(s c - m c) with c = Dh^-0.5 * log2(e), one FMA
-// and one ex2.approx per score, in f32. p is rounded to bf16 in
-// registers and fed straight back as the A operand of P V (the C
-// fragments of two n8 tiles are the A fragment of one k16 step); the
-// denominator sums the f32 p.
-// Shared-memory rows are XOR-swizzled in 16-byte chunks so ldmatrix and
-// cp.async are free of bank conflicts.
+// bf16 path: warp-specialised, wgmma and TMA, persistent. A work tile
+// is one head's 128 query rows; one block an SM walks the work tiles in
+// a fixed order (a head's query tiles heaviest first, then the next
+// head), so the causal tail stays short and the blocks resident at once
+// share a few heads' K and V in L2. Three warpgroups a block:
+// - warpgroup 2, the producer, gives its registers away (setmaxnreg.dec
+//   to 40) and one of its threads issues TMA loads: each work tile's Q
+//   once, then its K and V tiles of 128 keys into a ring of kStages
+//   slots (3 at Dh = 64, 2 at Dh = 128), each slot with a full and an
+//   empty mbarrier. The ring runs on across work tiles, so the next
+//   tile's Q and first keys load while the consumers finish the current
+//   one. The tensor maps address the model layout through its strides
+//   (row stride H*Dh for q, Hkv*Dh for k and v; coordinates (column,
+//   head, row, batch)), so nothing is copied; rows past S or T arrive as
+//   zeros.
+// - warpgroups 0 and 1, the consumers (setmaxnreg.inc to 232), own 64
+//   query rows each. Per key tile: S = Q K^T by wgmma m64n128k16 with
+//   both operands in shared memory (K-major); the online softmax on the
+//   f32 accumulator, the scale folded into the exponent (one FMA and one
+//   ex2.approx per score), maxima and sums as trees; p packed to bf16 in
+//   place as the register A operand of O += P V, wgmma m64nDk16 with V
+//   read from shared memory as an MN-major operand (the descriptor's
+//   transpose bit), so V is never re-laid out. Lane 0 of each consumer
+//   warp frees a slot once its warp's products have retired.
+// - Overlap: the two consumers take turns on named barriers (bar.sync
+//   1 + wg, 256). In its turn a warpgroup issues S for tile n and P V
+//   for tile n - 1, hands the turn over and runs its softmax of tile n
+//   while the other warpgroup's products run on the tensor cores. Its
+//   own P V overlaps less than the order in the source suggests: ptxas
+//   places the wait for it before the first write of the packed p (that
+//   product's A operand), which it schedules early.
+// Tiles are 1024-byte aligned and swizzled by 128 bytes, as TMA writes
+// them and the wgmma descriptors read them; a tile is Dh/64 column
+// blocks of 64 bf16 (one 128-byte row each), loaded as one TMA box each.
+//
+// Budget (shared memory; registers a thread):
+//   Dh = 64:  Q 16 KB + 3 x (K 16 KB + V 16 KB) = 112 KB;
+//   Dh = 128: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB;
+//   consumers hold S (64 f32), O (Dh/2 f32) and p (32 bf16 pairs), at
+//   most 232 registers; the producer 40; 128 x 40 + 256 x 232 = 64,512
+//   of the SM's 65,536. One block an SM.
+//
+// What holds it back (H100 SXM, scratch variants of this kernel with one
+// part switched off at the prefill shape): the consumers' softmax alone
+// runs about as long as the products alone, and the K and V traffic
+// from L2 (each 128-row tile re-reads its head's K and V, 1.1 GB at
+// Dh = 64) alone takes most of that again; the three overlap only in
+// part.
+//
+// Key tiles wholly above the causal diagonal or outside the window are
+// never visited; the element mask (two compares a score) is evaluated
+// only on tiles that cut a mask edge (diagonal, window edge, ragged T:
+// zero-filled keys must score -inf, not 0). A work tile whose rows see
+// no key writes zeros and loads nothing.
 //
 // f32 path (the reduced CPU-sized configs; the TPU kernel takes any
 // float dtype): plain f32 FMA, one warp per query row at a time, q
 // upcast and scaled by Dh^-0.5 as the TPU kernel does, expf.
 //
-// Ragged S and T are masked inside the kernel (zero-filled loads, masked
-// keys, unstored rows): any S, T >= 0 is taken. Kernels launch on the
-// caller's stream and allocate nothing. The C entry point returns
-// cudaGetLastError() after the launch (or -1 for a dtype or head dim it
-// does not take), which the Python wrapper raises on.
+// Any S, T >= 0 is taken. Kernels launch on the caller's stream and
+// allocate nothing. The driver's cuTensorMapEncodeTiled is reached
+// through cudaGetDriverEntryPoint, so the library links no libcuda. The
+// C entry point returns cudaGetLastError() after the launch, -1 for a
+// dtype or head dim it does not take, or -2 when a tensor map cannot be
+// made; the Python wrapper raises on any of them.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -83,45 +122,164 @@ __device__ __forceinline__ void key_tiles(int q0, int bm, int bn, int T, int cau
 
 // ------------------------------------------------------------ bf16 path
 
-constexpr int kBM = 128;      // query rows per block
-constexpr int kBN = 64;       // keys per tile
-constexpr int kWarps = kBM / 16;
-constexpr int kThreads = kWarps * 32;
+constexpr int kBM = 128;        // query rows per block
+constexpr int kBN = 128;        // keys per tile
+constexpr int kConsumers = 2;   // warpgroups of 64 query rows
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kCols = 64;       // bf16 columns of one 128-byte swizzled row
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+
+// Shared-memory plan (byte offsets from a 1024-aligned base).
+template <int D>
+struct Plan {
+  static constexpr int kStages = D == 64 ? 3 : 2;  // K and V ring slots
+  static constexpr int kQ = kBM * D * 2;          // Q tile
+  static constexpr int kKV = kBN * D * 2;         // one K or V slot
+  static constexpr int kK = kQ;
+  static constexpr int kV = kK + kStages * kKV;
+  static constexpr int kBars = kV + kStages * kKV;
+  // q_full, q_empty, then per slot k_full, k_empty, v_full, v_empty
+  static constexpr int kBytes = kBars + 8 * (2 + 4 * kStages) + 1024;  // + alignment slack
+  static_assert(kBytes <= 232448, "shared memory of one block");
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte copy into shared memory; zero-fills when !pred (src unread).
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool pred) {
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+// Arrive when `pred`, without a branch.
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"((uint32_t)pred)
+      : "memory");
+}
+// Arrive and announce the bytes the TMA loads of this phase will bring.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// Wait until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: one box of a 4-D tensor map (column, head, row, batch) into
+// shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int head, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head), "r"(row), "r"(batch),
+      "r"(bar)
+      : "memory");
+}
+
+// Named barriers 1 and 2 carry the consumers' turns (0 is __syncthreads).
+__device__ __forceinline__ void turn_wait(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(128 * kConsumers) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(128 * kConsumers) : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 =
+// 128-byte swizzle. K-major (rows of 64 K values): sbo = 1024, the step
+// between groups of 8 rows; lbo is not read. MN-major (rows of 64 N
+// values, K down the rows): lbo is the step between 64-column blocks,
+// sbo = 1024 the step between groups of 8 K rows.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pin a register across an asynchronous wgmma: the compiler may not move
+// its reads or writes past this point.
+__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void pin(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+#define FA_D8(i)                                                                      \
+  "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),     \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 128, f32) = A (64 x 16) B (16 x 128) (+ d when `accumulate`);
+// A and B in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24), FA_D8(32), FA_D8(40), FA_D8(48), FA_D8(56)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 in registers) B (16 x 64), B in
+// shared memory MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_pv_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16 in registers) B (16 x 128), B in
+// shared memory MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_pv_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24), FA_D8(32), FA_D8(40), FA_D8(48), FA_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+#undef FA_D8
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  if constexpr (D == 64) wgmma_pv_n64(d, a, b);
+  else wgmma_pv_n128(d, a, b);
 }
 
 // 2^x, one MUFU instruction; subnormal results flush to 0.
@@ -136,207 +294,437 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Element offset of 16-byte chunk `chunk` of row `row` in a swizzled
-// [rows][D] bf16 tile: the chunk index is XORed with row % 8.
-template <int D>
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * D + ((chunk ^ (row & 7)) << 3);
+template <int N>
+__device__ __forceinline__ void pin_all(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) pin(r[i]);
+}
+template <int N>
+__device__ __forceinline__ void pin_all(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) pin(r[i][0]), pin(r[i][1]), pin(r[i][2]), pin(r[i][3]);
 }
 
-// Copy rows [row0, row0+n_rows) of a (rows, D) matrix with the given row
-// stride into a swizzled tile; rows at or past `valid` are zero-filled.
+// Issue S (64 x kBN) = Q K^T for this warpgroup's rows: qd and kd
+// describe the Q rows and the K slot, Dh/64 column blocks of 128-byte
+// rows each; a 16-deep step moves 32 bytes along a row. A descriptor
+// moves by an offset in its address field (16-byte units), which no
+// offset inside shared memory carries out of.
 template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int64_t row_stride, int row0, int valid,
-                                          int n_rows) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < n_rows * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    const bool ok = row0 + r < valid;
-    const __nv_bfloat16* g = ok ? src + (int64_t)(row0 + r) * row_stride + c * 8 : src;
-    cp_async_16(smem_u32(dst + swz<D>(r, c)), g, ok);
-  }
+__device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint64_t qd, uint64_t kd) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n128(sc, qd + ((kk / 4) * (kBM * 128) + (kk % 4) * 32) / 16,
+                  kd + ((kk / 4) * (kBN * 128) + (kk % 4) * 32) / 16, kk > 0);
+  wgmma_commit();
 }
 
-// Dh = 64 asks for two blocks an SM, which caps it at 128 registers: its
-// latency is hidden by resident warps, and without the cap ptxas takes
-// more registers and leaves one block an SM. Dh = 128 needs more than
-// 128 registers and runs one block an SM.
+// Issue O += P V: p from registers, the V slot (descriptor vd) read
+// MN-major (a 16-key step moves 16 rows; the column blocks lie kBN rows
+// apart, the descriptor's lbo).
 template <int D>
-__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
-flash_attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                     int S, int T, int H, int Hkv, int causal, int window, float scale_log2) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kBM * D;       // two stages of kBN x D
-  __nv_bfloat16* vs = ks + 2 * kBN * D;   // two stages of kBN x D
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&pf)[kBN / 16][4],
+                                         uint64_t vd) {
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) wgmma_pv<D>(acc, pf[kk], vd + kk * 16 * 128 / 16);
+  wgmma_commit();
+}
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBM;  // heaviest tiles first
-  const int hk = h / (H / Hkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+struct Max {
+  __device__ __forceinline__ float operator()(float a, float b) const { return fmaxf(a, b); }
+};
+struct Sum {
+  __device__ __forceinline__ float operator()(float a, float b) const { return a + b; }
+};
+// t[0] op= t[W], ..., t[W-1] op= t[2W-1], then again with W/2, ...: a
+// tree of depth log2(2W) instead of a chain of 2W - 1.
+template <int W, int N, class Op>
+__device__ __forceinline__ float fold(float (&t)[N], Op op) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) t[j] = op(t[j], t[j + W]);
+  if constexpr (W > 1) return fold<W / 2>(t, op);
+  else return t[0];
+}
 
-  const int64_t q_stride = (int64_t)H * D;     // between consecutive positions
-  const int64_t kv_stride = (int64_t)Hkv * D;
-  const __nv_bfloat16* qb = q + ((int64_t)b * S * H + h) * D;
-  const __nv_bfloat16* kb = k + ((int64_t)b * T * Hkv + hk) * D;
-  const __nv_bfloat16* vb = v + ((int64_t)b * T * Hkv + hk) * D;
-  __nv_bfloat16* ob = o + ((int64_t)b * S * H + h) * D;
+// The online softmax of one thread's two rows (row0, row1 = row0 + 8) on
+// raw scores; the scale (times log2 e) enters each exponent through one
+// FMA. m is the running max, l this thread's share of the row sums.
+struct Softmax {
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  // Row r sees keys [lo[r], hi[r]], relative to this thread's first
+  // key column 2 (lane % 4).
+  int lo[2], hi[2], col;
+  float scale_log2;
 
-  int t_lo, t_hi;
-  key_tiles(q0, kBM, kBN, T, causal, window, t_lo, t_hi);
-  const int n_tiles = t_hi - t_lo;
-
-  if (n_tiles > 0) {  // a tile whose rows see no key writes zeros only
-    load_tile<D>(qs, qb, q_stride, q0, S, kBM);
-    load_tile<D>(ks, kb, kv_stride, t_lo * kBN, T, kBN);
-    load_tile<D>(vs, vb, kv_stride, t_lo * kBN, T, kBN);
-    cp_async_commit();
+  __device__ __forceinline__ Softmax(int row0, int row1, int lane, int T, int causal,
+                                     int window, float scale_log2_)
+      : col(2 * (lane & 3)), scale_log2(scale_log2_) {
+    const int rows[2] = {row0, row1};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lo[r] = window > 0 ? rows[r] - window + 1 : INT_MIN / 2;
+      hi[r] = causal ? min(rows[r], T - 1) : T - 1;
+    }
   }
 
-  float acc[D / 8][4];
+  // sc: the scores of keys [k0, k0 + kBN), replaced by their p (f32);
+  // `masked` when the tile cuts a mask edge (keys past T are zero-filled
+  // and must score -inf). alpha rescales the old O.
+  __device__ __forceinline__ void step(float (&sc)[kBN / 2], int k0, bool masked,
+                                       float& alpha0, float& alpha1) {
+    if (masked) {
+      const int base = k0 + col;
+      const int lo0 = lo[0] - base, hi0 = hi[0] - base, lo1 = lo[1] - base, hi1 = hi[1] - base;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_run[2] = {kNegInf, kNegInf};
-  float l_run[2] = {0.f, 0.f};     // this thread's share of the row sums
-  uint32_t qf[D / 16][4];
-  const int row0 = q0 + warp * 16 + lane / 4, row1 = row0 + 8;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int stage = it & 1;
-    const int k0 = (t_lo + it) * kBN;
-    if (it + 1 < n_tiles) {
-      load_tile<D>(ks + (stage ^ 1) * kBN * D, kb, kv_stride, k0 + kBN, T, kBN);
-      load_tile<D>(vs + (stage ^ 1) * kBN * D, vb, kv_stride, k0 + kBN, T, kBN);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldmatrix_x4(qf[kk], smem_u32(qs + swz<D>(warp * 16 + (lane & 15), kk * 2 + (lane >> 4))));
-    }
-    const __nv_bfloat16* kst = ks + stage * kBN * D;
-    const __nv_bfloat16* vst = vs + stage * kBN * D;
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
-    float s[kBN / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < kBN / 8; j += 2) {
-        uint32_t r[4];
-        ldmatrix_x4(r, smem_u32(kst + swz<D>(j * 8 + (lane >> 4) * 8 + (lane & 7),
-                                              kk * 2 + ((lane >> 3) & 1))));
-        mma_bf16(s[j], qf[kk], r[0], r[1]);
-        mma_bf16(s[j + 1], qf[kk], r[2], r[3]);
-      }
-    }
-
-    // The softmax runs on raw scores; the scale (times log2 e) enters
-    // each exponent through one FMA.
-    const bool masked = tile_cuts_mask(q0, kBM, k0, kBN, T, causal, window);
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-      if (masked) {
+      for (int j = 0; j < kBN / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int key = k0 + j * 8 + 2 * (lane & 3) + (e & 1);
-          if (!visible(e < 2 ? row0 : row1, key, T, causal, window)) s[j][e] = kNegInf;
+          const int key = j * 8 + (e & 1);  // relative to base
+          const bool seen = e < 2 ? (key >= lo0 && key <= hi0) : (key >= lo1 && key <= hi1);
+          sc[4 * j + e] = seen ? sc[4 * j + e] : kNegInf;
         }
       }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
     }
+    // Maxima and sums as trees, so a warp's chains stay short.
+    float t0[kBN / 8], t1[kBN / 8];
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      t0[j] = fmaxf(sc[4 * j], sc[4 * j + 1]);
+      t1[j] = fmaxf(sc[4 * j + 2], sc[4 * j + 3]);
+    }
+    float mx0 = fold<kBN / 16>(t0, Max()), mx1 = fold<kBN / 16>(t1, Max());
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m_run[0], mx0), mn1 = fmaxf(m_run[1], mx1);
-    const float alpha0 = ex2((m_run[0] - mn0) * scale_log2);
-    const float alpha1 = ex2((m_run[1] - mn1) * scale_log2);
-    m_run[0] = mn0;
-    m_run[1] = mn1;
+    const float mn0 = fmaxf(m[0], mx0), mn1 = fmaxf(m[1], mx1);
+    alpha0 = ex2((m[0] - mn0) * scale_log2);
+    alpha1 = ex2((m[1] - mn1) * scale_log2);
+    m[0] = mn0;
+    m[1] = mn1;
     // A row whose max is still kNegInf has seen only masked keys (all
     // kNegInf): it subtracts 0, so each of its p is 2^(-1e30 c) = 0.
     const float sub0 = mn0 == kNegInf ? 0.f : mn0 * scale_log2;
     const float sub1 = mn1 == kNegInf ? 0.f : mn1 * scale_log2;
-
-    uint32_t pf[kBN / 16][4];
-    float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j) {
-      const float p0 = ex2(fmaf(s[j][0], scale_log2, -sub0));
-      const float p1 = ex2(fmaf(s[j][1], scale_log2, -sub0));
-      const float p2 = ex2(fmaf(s[j][2], scale_log2, -sub1));
-      const float p3 = ex2(fmaf(s[j][3], scale_log2, -sub1));
-      ls0 += p0 + p1;
-      ls1 += p2 + p3;
-      pf[j / 2][(j & 1) * 2] = pack_bf16(p0, p1);
-      pf[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+      sc[4 * j] = ex2(fmaf(sc[4 * j], scale_log2, -sub0));
+      sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], scale_log2, -sub0));
+      sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], scale_log2, -sub1));
+      sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], scale_log2, -sub1));
+      t0[j] = sc[4 * j] + sc[4 * j + 1];
+      t1[j] = sc[4 * j + 2] + sc[4 * j + 3];
     }
-    l_run[0] = l_run[0] * alpha0 + ls0;
-    l_run[1] = l_run[1] * alpha1 + ls1;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= alpha0;
-      acc[n][1] *= alpha0;
-      acc[n][2] *= alpha1;
-      acc[n][3] *= alpha1;
-    }
+    l[0] = l[0] * alpha0 + fold<kBN / 16>(t0, Sum());
+    l[1] = l[1] * alpha1 + fold<kBN / 16>(t1, Sum());
+  }
+};
 
-    // acc += P V: V is the (keys x D) row-major B operand, read transposed.
+template <int D>
+__device__ __forceinline__ void rescale(float (&acc)[D / 2], float alpha0, float alpha1) {
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
+  for (int j = 0; j < D / 8; ++j) {
+    acc[4 * j] *= alpha0;
+    acc[4 * j + 1] *= alpha0;
+    acc[4 * j + 2] *= alpha1;
+    acc[4 * j + 3] *= alpha1;
+  }
+}
+
+// p to bf16 in place: the C fragments of two 8-key blocks are the A
+// fragment of one 16-key step.
+__device__ __forceinline__ void pack_p(uint32_t (&pf)[kBN / 16][4], const float (&sc)[kBN / 2]) {
 #pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, smem_u32(vst + swz<D>(kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7),
-                                                    n + (lane >> 4))));
-        mma_bf16(acc[n], pf[kk], r[0], r[1]);
-        mma_bf16(acc[n + 1], pf[kk], r[2], r[3]);
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    pf[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+    pf[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pf[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pf[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+// One work tile: a head's 128 query rows, and the key tiles they see.
+struct Work {
+  int q0, h, b, t_lo, n_tiles;
+  // Work tiles in order: a head's query tiles heaviest first, then the
+  // next head, then the next batch row. Blocks resident at once so
+  // share a few heads' K and V in L2 (with the head fastest they would
+  // stream every head's K and V from device memory once per query tile).
+  __device__ __forceinline__ Work(int w, int n_q, int H, int T, int causal, int window) {
+    q0 = (n_q - 1 - w % n_q) * kBM;
+    h = (w / n_q) % H;
+    b = w / n_q / H;
+    int t_hi;
+    key_tiles(q0, kBM, kBN, T, causal, window, t_lo, t_hi);
+    n_tiles = t_hi - t_lo;
+  }
+};
+
+// Persistent: one block an SM walks work tiles w = blockIdx.x,
+// blockIdx.x + gridDim.x, ... The K/V ring runs on across work tiles,
+// so the producer loads the next tile's Q and first keys while the
+// consumers finish the current one.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_bf16(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                     int B, int S, int T, int H, int Hkv, int causal, int window,
+                     float scale_log2) {
+  using P = Plan<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base, sk = base + P::kK, sv = base + P::kV;
+  const uint32_t q_full = base + P::kBars, q_empty = q_full + 8;
+  // Slot s's barriers at slot_bars + 32 s: k_full, k_empty, v_full, v_empty.
+  const uint32_t slot_bars = q_full + 16;
+  const int n_q = (S + kBM - 1) / kBM, n_work = n_q * H * B;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);                  // the producer
+    mbar_init(q_empty, 4 * kConsumers);  // one thread of each consumer warp
+    for (int s = 0; s < P::kStages; ++s) {
+      mbar_init(slot_bars + 32 * s, 1);
+      mbar_init(slot_bars + 32 * s + 8, 4 * kConsumers);
+      mbar_init(slot_bars + 32 * s + 16, 1);
+      mbar_init(slot_bars + 32 * s + 24, 4 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // One if/else for the two roles, never reconverging, so that ptxas
+  // honours setmaxnreg.
+  if (threadIdx.x >= 128 * kConsumers) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 128 * kConsumers) {
+      int ring = 0, used = 0;  // K/V tiles loaded; work tiles with keys
+      for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+        const Work wk(w, n_q, H, T, causal, window);
+        if (wk.n_tiles == 0) continue;
+        const int hk = wk.h / (H / Hkv);
+        mbar_wait(q_empty, (used & 1) ^ 1);  // the first wait is free
+        mbar_expect_tx(q_full, P::kQ);
+#pragma unroll
+        for (int c = 0; c < D / kCols; ++c)
+          tma_load(sq + c * kBM * 128, &tq, q_full, c * kCols, wk.h, wk.q0, wk.b);
+        ++used;
+        for (int it = 0; it < wk.n_tiles; ++it, ++ring) {
+          const int s = ring % P::kStages;
+          const uint32_t free_parity = ((ring / P::kStages) & 1) ^ 1;
+          const uint32_t bars = slot_bars + 32 * s;
+          const int k0 = (wk.t_lo + it) * kBN;
+          mbar_wait(bars + 8, free_parity);
+          mbar_expect_tx(bars, P::kKV);
+#pragma unroll
+          for (int c = 0; c < D / kCols; ++c)
+            tma_load(sk + s * P::kKV + c * kBN * 128, &tk, bars, c * kCols, hk, k0, wk.b);
+          mbar_wait(bars + 24, free_parity);
+          mbar_expect_tx(bars + 16, P::kKV);
+#pragma unroll
+          for (int c = 0; c < D / kCols; ++c)
+            tma_load(sv + s * P::kKV + c * kBN * 128, &tv, bars + 16, c * kCols, hk, k0, wk.b);
+        }
       }
     }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
+  } else {
+    // --------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wg = threadIdx.x / 128;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int my_turn = 1 + wg, their_turn = 2 - wg;
+    // Lane 0 of each consumer warp releases a slot once its warp's
+    // products have retired (a predicate, not a branch).
+    const bool lead = lane == 0;
+    // Descriptors of this warpgroup's rows of Q and of K and V slot 0;
+    // slot s lies s * kKV bytes on.
+    const uint64_t qd = sw128_desc(sq + wg * 64 * 128, 16, 1024);
+    const uint64_t kd = sw128_desc(sk, 16, 1024), vd = sw128_desc(sv, kBN * 128, 1024);
+    constexpr uint64_t kSlot = P::kKV / 16;
+    const int64_t q_stride = (int64_t)H * D;  // between consecutive positions
+    int ring = 0, used = 0;
 
-  float l0 = l_run[0], l1 = l_run[1];
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  const int col = 2 * (lane & 3);
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+      const Work wk(w, n_q, H, T, causal, window);
+      const int row0 = wk.q0 + 64 * wg + warp * 16 + lane / 4, row1 = row0 + 8;
+      float acc[D / 2];  // O: D/8 column blocks of 8, four values a thread each
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    if (row0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)row0 * q_stride + n * 8 + col) =
-          __floats2bfloat162_rn(acc[n][0] / d0, acc[n][1] / d0);
-    if (row1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)row1 * q_stride + n * 8 + col) =
-          __floats2bfloat162_rn(acc[n][2] / d1, acc[n][3] / d1);
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      Softmax sm(row0, row1, lane, T, causal, window, scale_log2);
+
+      if (wk.n_tiles > 0) {
+        const int n = wk.n_tiles;
+        float sc[kBN / 2];         // S, then p in f32: kBN/8 blocks of 8 keys
+        uint32_t pf[kBN / 16][4];  // p in bf16, the A operand of P V
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i) sc[i] = 0.f;
+#pragma unroll
+        for (int i = 0; i < kBN / 16; ++i) pf[i][0] = pf[i][1] = pf[i][2] = pf[i][3] = 0u;
+        // A turn issues this warpgroup's products: S for tile 0 (turn
+        // 0), S for tile it and P V for tile it - 1 (turn it), P V for
+        // the last tile (turn n). Warpgroup 0 takes the first turn, and
+        // warpgroup 1 hands over after each of its turns but the last,
+        // so each named barrier sees as many passes as waits. No branch
+        // lies between a product's issue and its wait (ptxas would
+        // serialise the wgmmas), so the first and last turns are peeled.
+        // Q is released once the last S is in.
+        if (wg == 1) turn_pass(1);
+        mbar_wait(q_full, used & 1);
+        ++used;
+
+        uint32_t bars = slot_bars + 32 * (ring % P::kStages);
+        mbar_wait(bars, (ring / P::kStages) & 1);
+        turn_wait(my_turn);
+        pin_all(sc);
+        wgmma_fence();
+        issue_qk<D>(sc, qd, kd + (ring % P::kStages) * kSlot);
+        turn_pass(their_turn);
+        wgmma_wait<0>();
+        pin_all(sc);
+        mbar_arrive_if(bars + 8, lead);  // K slot free
+        mbar_arrive_if(q_empty, lead && n == 1);
+        float alpha0, alpha1;
+        sm.step(sc, wk.t_lo * kBN,
+                tile_cuts_mask(wk.q0, kBM, wk.t_lo * kBN, kBN, T, causal, window), alpha0,
+                alpha1);
+        pack_p(pf, sc);
+
+        for (int it = 1; it < n; ++it) {
+          const int r = ring + it, s = r % P::kStages, ps = (r - 1) % P::kStages;
+          bars = slot_bars + 32 * s;
+          const uint32_t pbars = slot_bars + 32 * ps;
+          const int k0 = (wk.t_lo + it) * kBN;
+          mbar_wait(bars, (r / P::kStages) & 1);
+          mbar_wait(pbars + 16, ((r - 1) / P::kStages) & 1);
+          turn_wait(my_turn);
+          pin_all(sc);
+          pin_all(acc);
+          pin_all(pf);
+          wgmma_fence();
+          issue_qk<D>(sc, qd, kd + s * kSlot);
+          issue_pv<D>(acc, pf, vd + ps * kSlot);
+          turn_pass(their_turn);
+          wgmma_wait<1>();  // S is in; P V of the previous tile may still run
+          pin_all(sc);
+          mbar_arrive_if(bars + 8, lead);  // K slot free
+          mbar_arrive_if(q_empty, lead && it == n - 1);
+          sm.step(sc, k0, tile_cuts_mask(wk.q0, kBM, k0, kBN, T, causal, window), alpha0,
+                  alpha1);
+          wgmma_wait<0>();
+          pin_all(acc);
+          pin_all(pf);
+          mbar_arrive_if(pbars + 24, lead);  // V slot free
+          // O holds tiles < it: bring it to the new max, then pack p as
+          // the next turn's A operand (which the wait above freed).
+          rescale<D>(acc, alpha0, alpha1);
+          pack_p(pf, sc);
+        }
+
+        const int lr = ring + n - 1, ls = lr % P::kStages;
+        bars = slot_bars + 32 * ls;
+        mbar_wait(bars + 16, (lr / P::kStages) & 1);
+        turn_wait(my_turn);
+        pin_all(acc);
+        pin_all(pf);
+        wgmma_fence();
+        issue_pv<D>(acc, pf, vd + ls * kSlot);
+        wgmma_wait<0>();
+        pin_all(acc);
+        pin_all(pf);
+        mbar_arrive_if(bars + 24, lead);
+        if (wg == 0) turn_pass(their_turn);
+        ring += n;
+      }
+
+      float l0 = sm.l[0], l1 = sm.l[1];
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      const float r0 = 1.f / fmaxf(l0, 1e-30f), r1 = 1.f / fmaxf(l1, 1e-30f);
+      __nv_bfloat16* ob = o + ((int64_t)wk.b * S * H + wk.h) * D + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        if (row0 < S)
+          *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)row0 * q_stride + j * 8) =
+              __floats2bfloat162_rn(acc[4 * j] * r0, acc[4 * j + 1] * r0);
+        if (row1 < S)
+          *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)row1 * q_stride + j * 8) =
+              __floats2bfloat162_rn(acc[4 * j + 2] * r1, acc[4 * j + 3] * r1);
+      }
+    }
   }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (B, rows, heads, D) bf16 tensor as a 4-D map (column, head, row,
+// batch) whose box is 64 columns of one head over `box_rows` rows,
+// swizzled by 128 bytes; rows past the end read as zeros.
+bool make_map(CUtensorMap* map, const void* ptr, int D, int heads, int rows, int B,
+              int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)rows,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)rows * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kCols, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
                 int S, int T, int causal, int window, float scale, cudaStream_t stream) {
-  constexpr int smem = (kBM + 4 * kBN) * D * (int)sizeof(__nv_bfloat16);
+  CUtensorMap tq, tk, tv;
+  // With T = 0 no block loads a key: q stands in for k and v, unread.
+  const void* kp = T > 0 ? k : q;
+  const void* vp = T > 0 ? v : q;
+  const int rows = T > 0 ? T : 1;
+  if (!make_map(&tq, q, D, H, S, B, kBM) || !make_map(&tk, kp, D, Hkv, rows, B, kBN) ||
+      !make_map(&tv, vp, D, Hkv, rows, B, kBN))
+    return -2;
+  constexpr int smem = Plan<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(flash_attention_bf16<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(H, B, (S + kBM - 1) / kBM);
-  flash_attention_bf16<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, T, H, Hkv,
-      causal, window, scale * kLog2e);
+  int device, sms;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return (int)err;
+  const long long n_work = (long long)((S + kBM - 1) / kBM) * H * B;
+  if (n_work > INT_MAX) return -1;
+  flash_attention_bf16<D><<<(unsigned)(n_work < sms ? n_work : sms), kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, S, T, H, Hkv, causal, window,
+      scale * kLog2e);
   return (int)cudaGetLastError();
 }
 

@@ -27,9 +27,12 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
 #: Head dims the kernel is compiled for.
 HEAD_DIMS = (64, 128)
-#: Query rows per CUDA block (the kernel's BLOCK_M); the grid's third
-#: axis counts S in these and may not exceed 65,535.
+#: Query rows of one work tile of the bf16 kernel (its BLOCK_M); it has
+#: S / BLOCK_Q * H * B of them, fewer than 2**31, walked by one block an
+#: SM. The f32 grid is (H, B, S / 16), and an axis after the first may
+#: not exceed 65,535.
 BLOCK_Q = 128
+F32_BLOCK_Q = 16
 _MAX_GRID = 65535
 
 #: Kernel launches since the last :func:`reset_launch_counts`.
@@ -87,8 +90,12 @@ def _check(q, k, v, window):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if not isinstance(window, int) or window < 0:
         raise ValueError(f"window must be an int >= 0, got {window!r}")
-    if b > _MAX_GRID or -(-s // BLOCK_Q) > _MAX_GRID:
-        raise ValueError(f"too large for the kernel's grid: B={b}, S={s}")
+    if q.dtype == torch.float32:
+        too_large = b > _MAX_GRID or -(-s // F32_BLOCK_Q) > _MAX_GRID
+    else:
+        too_large = -(-s // BLOCK_Q) * h * b >= 2 ** 31
+    if too_large:
+        raise ValueError(f"too large for the kernel's grid: B={b}, H={h}, S={s}")
 
 
 def flash_attention(q, k, v, *, causal=True, window=0):
@@ -113,8 +120,10 @@ def flash_attention(q, k, v, *, causal=True, window=0):
             _DTYPE_CODES[q.dtype], b, h, hkv, s, t, dh, int(bool(causal)),
             window, float(dh ** -0.5), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}"
-                           if rc > 0 else "flash_attention: unsupported "
-                           "dtype or head dim")
+        raise RuntimeError(
+            f"flash_attention launch failed: CUDA error {rc}" if rc > 0 else
+            "flash_attention: no TMA tensor map (cuTensorMapEncodeTiled "
+            "missing or refused the shape)" if rc == -2 else
+            "flash_attention: unsupported dtype or head dim")
     launch_counts["flash_attention"] += 1
     return out

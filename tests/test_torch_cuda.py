@@ -187,6 +187,14 @@ K3_CASES = [  # (B, H, Hkv, S, T, Dh), causal, window, dtype
     ((2, 4, 4, 200, 200, 64), False, 0, torch.float32),
     ((1, 4, 1, 130, 70, 128), True, 0, torch.float32),
     ((1, 2, 2, 1, 1, 64), True, 0, torch.bfloat16),
+    # S and T not multiples of the 128-row query or key tile.
+    ((1, 4, 4, 300, 300, 128), True, 0, torch.bfloat16),
+    # Dh = 128 with GQA and a window, the shape of the GQA models.
+    ((2, 12, 2, 1000, 1000, 128), True, 256, torch.bfloat16),
+    # One query row against a ragged T.
+    ((2, 8, 2, 1, 300, 128), False, 0, torch.bfloat16),
+    # Query tiles 1 and 2 (rows 128..299) see no key at all.
+    ((1, 4, 2, 300, 40, 128), False, 16, torch.bfloat16),
 ]
 
 
@@ -212,6 +220,23 @@ def test_k3_matches_plain_version(card, shape, causal, window, dtype):
     dead = ~fa_ref.visible_mask(s, t, causal=causal, window=window,
                                 device=card).any(dim=1)
     assert torch.all(out[:, dead] == 0)
+
+
+@pytest.mark.parametrize("shape,causal,window", [
+    ((2, 8, 8, 512, 512, 64), True, 0),
+    ((2, 12, 4, 700, 700, 128), True, 256),
+])
+def test_k3_is_deterministic(card, shape, causal, window):
+    """Two launches on the same inputs give the same bits: no atomics,
+    a fixed order of every sum."""
+    b, h, hkv, s, t, dh = shape
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q = torch.randn(b, s, h, dh, device=card, generator=gen).bfloat16()
+    k = torch.randn(b, t, hkv, dh, device=card, generator=gen).bfloat16()
+    v = torch.randn(b, t, hkv, dh, device=card, generator=gen).bfloat16()
+    first = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    second = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert torch.equal(first, second)
 
 
 def test_k3_wrapper_refuses_what_the_kernel_does_not_take(card):

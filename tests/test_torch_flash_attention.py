@@ -9,7 +9,11 @@ with rows that see no key: same numpy inputs, f32, ``rtol=atol=1e-5``
 (both compute in f32, the products summed in other orders). On rows
 with no visible key both give exact zeros; the JAX package's own
 ``ref.py`` gives the mean of v there, which the port does not follow.
+Last, the variants of the card-only measurement tool ``probe.py`` still
+apply to the kernel source they patch.
 """
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +22,7 @@ import torch
 
 from repro.kernels.flash_attention.flash_attention import flash_attention_kernel
 from repro.kernels.flash_attention.ref import flash_attention_ref as j_ref
-from repro_torch.kernels.flash_attention import ops, ref
+from repro_torch.kernels.flash_attention import ops, probe, ref
 
 SWEEP = [  # b, h, hkv, s, t, dh, causal, window, bq, bk
     (1, 2, 1, 64, 64, 16, True, 0, 16, 16),
@@ -117,3 +121,13 @@ def test_cpu_wrapper_rejects_what_the_kernel_does_not_take():
                             kv, kv)
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention(q, kv, kv, window=-1)
+
+
+@pytest.mark.parametrize("name", sorted(probe.PATCHES))
+def test_k3_probe_variants_apply_to_the_kernel_source(name):
+    """Every variant of the K3 probe finds each of its anchors once in
+    ``csrc/flash_attention.cu`` (``variant_source`` raises otherwise),
+    so the probe still builds after an edit of the kernel."""
+    src = probe.variant_source(name)
+    assert (src == ops.SOURCE.read_text()) == (name == "base")
+    assert re.search(r"@\d", src) is None
