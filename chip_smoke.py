@@ -15,7 +15,11 @@ without printing its result line:
    registers and spills of the bf16 kernels and fails on a spill or a
    setmaxnreg or wgmma-serialisation warning (C7508, C7520), and counts
    their HGMMA and UTMALDG instructions in the SASS (cuobjdump), which
-   must not be 0.
+   must not be 0. For K4 it prints, for each kernel the K4 main path
+   instantiates (the scores and walk kernels at both shapes, chunk 64),
+   ptxas's registers and spills, the walk's tiling and dynamic shared
+   memory, and the HMMA (tensor-core) instructions in its SASS; it fails
+   on a spill or a kernel without HMMA.
 3. Kernel phase, at the Fig-1 shape (N = 40 clients, P = 316,554 CNN
    parameters) and at a ragged P = 2,049: K1 (dense; masked with inf/NaN
    rows; bf16 gradients into f32) and K2 (update f32; update of bf16
@@ -59,7 +63,10 @@ without printing its result line:
    are held against the plain sequential version on the card. Times K4
    at both shapes, flushed and warm, beside the plain version, the port's
    ``chunked_gla`` (the nearest comparator: no single PyTorch call
-   computes this function) and the bound.
+   computes this function) and the bound of the route the kernel takes:
+   the larger of the bytes and 3 x the operations at the TF32 tensor-core
+   rate (3xTF32). The line also prints the bound at the f32 rate, the
+   count earlier runs report; the ``kernels`` line holds the route's.
 7. LM phase: stablelm-1.6b at full width (24 layers, d_model 2048, 32
    heads of 64, d_ff 5632, vocab 100352, bf16; random weights from a
    seed). Three prefills of B = 8 × S = 2,048 through
@@ -113,10 +120,10 @@ LM_BATCH, LM_SEQ, LM_PREFILLS = 8, 2048, 3
 LM_PROMPT, LM_CACHE, LM_GREEDY = 448, 512, 64
 LM_PARAMS = 1_644_883_968
 # Peak rates of the H100 SXM (NVIDIA data sheet): HBM bytes/s, f32
-# (non-tensor-core) flop/s and dense bf16 tensor-core flop/s. torch
-# names that card "NVIDIA H100 80GB HBM3".
+# (non-tensor-core) flop/s, dense bf16 and dense TF32 tensor-core flop/s.
+# torch names that card "NVIDIA H100 80GB HBM3".
 H100_SXM = "H100 80GB HBM3"
-H100_SXM_PEAKS = (3.35e12, 67e12, 989e12)
+H100_SXM_PEAKS = (3.35e12, 67e12, 989e12, 495e12)
 
 
 def card_peaks(name):
@@ -406,16 +413,12 @@ K3_TIMED = ("prefill shape", "minitron-4b")
 MUFU_PER_CLOCK = 16
 
 
-def k3_build_report(build, fa_ops):
-    """ptxas's registers and spills and the SASS's HGMMA and UTMALDG
-    counts of the bf16 K3 kernels; fails on a spill, a C7508 (setmaxnreg
-    ignored) or C7520 (wgmma serialised) warning, or a kernel without
-    wgmma or TMA."""
-    log = build.build_log(fa_ops.SOURCE)
-    for code in ("C7508", "C7520"):
-        check(code not in log, f"K3 build: ptxas warns {code}:\n{log}")
+def build_report(build, source):
+    """ptxas's report of each kernel in the library of ``source`` as
+    {mangled name: [spill line, registers line]}, and its SASS as
+    {mangled name: body}."""
     funcs, name = {}, None
-    for line in log.splitlines():
+    for line in build.build_log(source).splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
         elif name and "spill stores" in line:
@@ -424,9 +427,21 @@ def k3_build_report(build, fa_ops):
             funcs[name].append(line.split(":", 1)[1].strip())
     cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "--dump-sass",
-                           str(build.library_path(fa_ops.SOURCE))],
+                           str(build.library_path(source))],
                           capture_output=True, text=True, check=True).stdout
     bodies = {b.split("\n", 1)[0].strip(): b for b in sass.split("Function : ")[1:]}
+    return funcs, bodies
+
+
+def k3_build_report(build, fa_ops):
+    """ptxas's registers and spills and the SASS's HGMMA and UTMALDG
+    counts of the bf16 K3 kernels; fails on a spill, a C7508 (setmaxnreg
+    ignored) or C7520 (wgmma serialised) warning, or a kernel without
+    wgmma or TMA."""
+    log = build.build_log(fa_ops.SOURCE)
+    for code in ("C7508", "C7520"):
+        check(code not in log, f"K3 build: ptxas warns {code}:\n{log}")
+    funcs, bodies = build_report(build, fa_ops.SOURCE)
     for dh in (64, 128):
         tag = f"flash_attention_bf16ILi{dh}E"
         fn = next(f for f in funcs if tag in f)
@@ -540,6 +555,39 @@ K4_CASES = (  # label, (B, S, H, dk, dv), dtypes of a, k, v, q, shared k/q
      False),
 )
 K4_CHUNK, K4_TOL = 64, 1e-4
+
+
+def k4_build_report(torch, build, ssm_ops):
+    """For each K4 kernel the main path instantiates (the scores kernel
+    and the walk at each K4_CASES shape, chunk 64): ptxas's registers and
+    spills, the walk's tiling and dynamic shared memory, and the HMMA
+    (tensor-core) instructions of its SASS; fails on a spill or a kernel
+    without HMMA."""
+    funcs, bodies = build_report(build, ssm_ops.SOURCE)
+    for label, (_, _, _, dk, _), dtypes, _ in K4_CASES:
+        cfg = ssm_ops.kernel_config(dk, [getattr(torch, d) for d in dtypes], K4_CHUNK)
+        exact = int(dtypes[1] == dtypes[3] == "bfloat16")
+        mt = cfg["columns"] // 16
+        nr = cfg["warps"] // mt
+        tags = {"scores": f"gla_scoresILi{K4_CHUNK}ELb{exact}E",
+                "walk": f"gla_walkILi{K4_CHUNK}ELi{mt}ELi{nr}E"
+                        f"Li{cfg['dk_step'] // (8 * nr)}ELi{cfg['cluster']}ELb{exact}E"}
+        for kind, tag in tags.items():
+            fn = next(f for f in funcs if tag in f)
+            body = next(b for n, b in bodies.items() if tag in n)
+            spills, regs = funcs[fn]
+            hmma = body.count("HMMA")
+            check("0 bytes spill stores, 0 bytes spill loads" in spills,
+                  f"K4 {kind} at {label} spills: {spills}")
+            check(hmma > 0, f"K4 {kind} at {label}: SASS without HMMA")
+            tiling = (f"{cfg['columns']} state columns a block, {cfg['warps']} "
+                      f"warps, dk in steps of {cfg['dk_step']}, split over "
+                      f"{cfg['cluster']} block(s) of a cluster, "
+                      f"{cfg['walk_smem']} B dynamic shared memory"
+                      if kind == "walk" else
+                      f"{cfg['scores_smem']} B dynamic shared memory")
+            print(f"k4 build: {kind} kernel for {label}: ptxas {regs}, {spills}; "
+                  f"{tiling}; SASS HMMA {hmma}, LDGSTS {body.count('LDGSTS')}")
 
 
 def k4_inputs(torch, gen, shape, dtypes, shared_kq, small_decay=False):
@@ -656,7 +704,10 @@ def k4_phase(torch, ssm_ops, ssm_ref, chunked_gla, peaks):
             times = [time_ms(torch, fn, flush, n)
                      for fn, n in zip(fns, (TIMED_LAUNCHES, 2, 10))]
         flops, nbytes = k4_work(x)
-        bound_f, bound_b = flops / peaks[1] * 1e3, nbytes / peaks[0] * 1e3
+        bound_b = nbytes / peaks[0] * 1e3
+        # The route taken: every product on the TF32 tensor cores as
+        # 3xTF32. The f32 count is printed too, as earlier runs report it.
+        bound_f, bound_f32 = 3 * flops / peaks[3] * 1e3, flops / peaks[1] * 1e3
         timing[label] = {
             "ms": times[0][0], "warm_ms": times[0][1],
             "plain_ms": times[1][0], "plain_warm_ms": times[1][1],
@@ -667,9 +718,12 @@ def k4_phase(torch, ssm_ops, ssm_ref, chunked_gla, peaks):
               f"{times[0][0]:.4f} | {times[0][1]:.4f}, plain {times[1][0]:.2f} "
               f"| {times[1][1]:.2f}, nearest comparator (chunked_gla) "
               f"{times[2][0]:.4f} | {times[2][1]:.4f}, library call none, "
-              f"bound {timing[label]['bound_ms']:.4f} ({flops / 1e9:.1f} GFLOP "
-              f"f32, {nbytes / 1e6:.0f} MB; {flops / times[0][0] / 1e9:.2f} "
-              f"TFLOP/s achieved flushed)")
+              f"bound {timing[label]['bound_ms']:.4f} "
+              f"({timing[label]['bound_by']}: 3 x {flops / 1e9:.1f} GFLOP at "
+              f"the TF32 rate, {nbytes / 1e6:.0f} MB; "
+              f"{100 * timing[label]['bound_ms'] / times[0][0]:.1f} % of it "
+              f"reached flushed; {flops / times[0][0] / 1e9:.2f} TFLOP/s "
+              f"achieved), bound at the f32 rate {max(bound_f32, bound_b):.4f}")
     del inputs, flush
     torch.cuda.empty_cache()
     print(f"k4 phase: largest abs error {max_err:.4g}")
@@ -863,7 +917,7 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}; "
           f"peaks used for the bound: {peaks[0] / 1e12:.2f} TB/s, "
           f"{peaks[1] / 1e12:.0f} TFLOP/s f32, {peaks[2] / 1e12:.0f} TFLOP/s "
-          f"bf16")
+          f"bf16, {peaks[3] / 1e12:.0f} TFLOP/s TF32")
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=3) as pool:
@@ -873,6 +927,7 @@ def main():
           f"{time.perf_counter() - t0:.1f} s (one nvcc process for each "
           f"source, all at once)")
     k3_build_report(_build, fa_ops)
+    k4_build_report(torch, _build, ssm_ops)
 
     errs, timing = kernel_phase(torch, ops, ref, peaks)
     launches = fig1_phase(torch, rt)
@@ -912,9 +967,8 @@ def main():
         "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:65",
         "launches": launches["gla_scan"], "max_abs_err": k4_err,
         "ms": total("ms"), "plain_ms": total("plain_ms"),
-        "bound_ms": total("bound_ms"), "bound_by": "operations"
-        if all(t["bound_by"] == "operations" for t in k4_timing.values())
-        else "bytes",
+        "bound_ms": total("bound_ms"), "bound_by": max(
+            k4_timing.values(), key=lambda t: t["bound_ms"])["bound_by"],
         "library_ms": None, "warm_ms": total("warm_ms"),
         "plain_warm_ms": total("plain_warm_ms"),
         "comparator": "repro_torch.models.ssm.chunked_gla",

@@ -21,13 +21,12 @@ limit as ``nvidia-smi`` gives them.
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _probe
 from repro_torch.kernels.flash_attention import ops
 
 SHAPES = (  # label, (B, H, Hkv, S, Dh)
@@ -97,49 +96,19 @@ PATCHES = {
 
 
 def variant_source(name: str) -> str:
-    src = ops.SOURCE.read_text()
-    for anchor, replacement in PATCHES[name]:
-        if src.count(anchor) != 1:
-            raise RuntimeError(f"probe variant {name!r}: anchor not found once in "
-                               f"{ops.SOURCE.name}: {anchor[:60]!r}")
-        for i in range(8):
-            replacement = replacement.replace(f"@{i}", _CLOCK.replace("{i}", str(i)))
-        src = src.replace(anchor, replacement)
-    return src
+    return _probe.variant_source(ops.SOURCE, name, PATCHES[name], _CLOCK)
 
 
 def build(name: str) -> ctypes.CDLL:
-    """Write and compile the variant's source beside the kernel libraries."""
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    stem = "k3_probe_" + name.replace(" ", "_")
-    src = _build.BUILD_DIR / f"{stem}.cu"
-    src.write_text(variant_source(name))
-    lib = _build.BUILD_DIR / f"lib{stem}.so"
-    cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed on probe variant {name!r}:\n{proc.stderr}")
-    handle = ctypes.CDLL(str(lib))
+    """Compile the variant's source beside the kernel libraries."""
+    handle = _probe.build("k3_probe_" + name.replace(" ", "_"), variant_source(name))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     handle.flash_attention.argtypes = [ptr] * 4 + [i32] * 9 + [f32, ptr]
     return handle
 
 
-def flushed_ms(fn, n=30):
-    """Mean ms a call over ``n`` calls, a 256 MB buffer zeroed before each."""
-    flush = torch.empty(64 * 2 ** 20, device="cuda")
-    for _ in range(3):
-        fn()
-    events = []
-    for _ in range(n):
-        flush.zero_()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in events) / n
+def flushed_ms(fn):
+    return _probe.flushed_ms(fn, n=30, warmup=3)
 
 
 def main(names=tuple(PATCHES)):
@@ -182,9 +151,7 @@ def main(names=tuple(PATCHES)):
                                      f"({100 * counts[i] / total:.0f} %)"
                                      for i, sec in enumerate(SECTIONS)))
             print(line, flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip())
+    print(_probe.card_line())
     return 0
 
 

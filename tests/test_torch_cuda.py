@@ -328,8 +328,11 @@ K4_CASES = [  # (B, S, H, dk, dv), chunk, dtypes of a, k, v, q
 ]
 
 
-def _k4_inputs(shape, dtypes, seed, small_decay=False):
+def _k4_inputs(shape, dtypes, seed, small_decay=False, shared=False):
+    """With ``shared`` k and q hold one row a position, expanded over the
+    heads with stride 0, as the Mamba2 block makes them."""
     b, s, h, dk, dv = shape
+    kq_heads = 1 if shared else h
     gen = torch.Generator(device="cuda").manual_seed(seed)
     u = torch.rand(b, s, h, device="cuda", generator=gen)
     if small_decay:  # log-uniform down to 1e-6, and exact zeros for the clamp
@@ -337,10 +340,11 @@ def _k4_inputs(shape, dtypes, seed, small_decay=False):
         a[:, ::13] = 0.0
     else:
         a = 0.6 + 0.4 * u
-    k = torch.randn(b, s, h, dk, device="cuda", generator=gen) * dk ** -0.5
-    q = torch.randn(b, s, h, dk, device="cuda", generator=gen) * dk ** -0.5
+    k = torch.randn(b, s, kq_heads, dk, device="cuda", generator=gen) * dk ** -0.5
+    q = torch.randn(b, s, kq_heads, dk, device="cuda", generator=gen) * dk ** -0.5
     v = torch.randn(b, s, h, dv, device="cuda", generator=gen)
-    return tuple(x.to(getattr(torch, d)) for x, d in zip((a, k, v, q), dtypes))
+    a, k, v, q = (x.to(getattr(torch, d)) for x, d in zip((a, k, v, q), dtypes))
+    return a, k.expand(b, s, h, dk), v, q.expand(b, s, h, dk)
 
 
 def _k4_plain(a, k, v, q):
@@ -410,6 +414,55 @@ def test_k4_makes_no_f32_copy_of_bf16_operands(card):
     k_f32 = x[1].numel() * 4
     assert torch.cuda.max_memory_allocated() - base < y.numel() * 4 + k_f32
     _k4_agrees(y, _k4_plain(*x))
+
+
+K4_EDGES = [  # (B, S, H, dk, dv), chunk, dtypes of a, k, v, q, shared k/q, small decays
+    # k and q shared by the heads (stride 0): the scores are formed once a
+    # batch row, at head counts that fill no block evenly
+    ((2, 200, 3, 64, 64), 64, KQ_BF16, True, False),
+    ((1, 200, 80, 64, 64), 64, KQ_BF16, True, False),
+    ((1, 200, 3, 128, 40), 32, F32, True, False),
+    # dv ragged against the 64-column slice: in a block of its own (dk 64)
+    # and in a cluster taking 64 dk rows a step (dk 128, 256); the largest
+    # dk below takes the cluster with 32 rows a step
+    ((1, 100, 2, 64, 65), 64, F32, False, False),
+    ((1, 100, 2, 128, 65), 64, KQ_BF16, False, False),
+    ((1, 100, 1, 256, 1025), 64, F32, False, False),
+    # dk not a multiple of the k tile
+    ((2, 100, 2, 40, 48), 64, F32, False, False),
+    ((1, 90, 2, 1000, 40), 64, F32, False, False),
+    # S shorter than one chunk, at every chunk
+    ((2, 5, 3, 32, 20), 16, F32, False, False),
+    ((2, 30, 3, 32, 20), 32, KQ_BF16, True, False),
+    ((2, 63, 3, 96, 20), 64, F32, False, False),
+    # small decays with exact zeros, on the shared path
+    ((2, 300, 5, 64, 64), 64, KQ_BF16, True, True),
+    ((1, 300, 3, 256, 48), 32, KQ_BF16, True, True),
+    # the largest dk, ragged dv
+    ((1, 100, 2, 1536, 33), 64, F32, False, False),
+    # strides that TMA cannot take (not multiples of 16 bytes): q and k by
+    # cp.async; bf16 rows aligned to 2 bytes only, by plain loads, in one
+    # block and spread over a cluster
+    ((1, 100, 2, 33, 20), 32, F32, False, False),
+    ((1, 100, 2, 13, 20), 16, KQ_BF16, False, False),
+    ((1, 60, 2, 64, 33), 64, ("float32", "float32", "bfloat16", "float32"), False, False),
+    ((1, 60, 2, 128, 33), 32, ("float32", "float32", "bfloat16", "float32"), False, False),
+]
+
+
+@pytest.mark.parametrize("shape,chunk,dtypes,shared,small_decay", K4_EDGES)
+def test_k4_design_edges(card, shape, chunk, dtypes, shared, small_decay):
+    """The edges of the kernel's tiling: within the tolerance of the
+    plain version, deterministic, and a stride-0 k and q give the bits of
+    dense copies."""
+    x = _k4_inputs(shape, dtypes, seed=sum(shape) + chunk, small_decay=small_decay,
+                   shared=shared)
+    y = ssm_ops.gla_scan(*x, chunk=chunk)
+    _k4_agrees(y, _k4_plain(*x))
+    assert torch.equal(y, ssm_ops.gla_scan(*x, chunk=chunk))
+    if shared:
+        dense = ssm_ops.gla_scan(*(t.contiguous() for t in x), chunk=chunk)
+        assert torch.equal(y, dense)
 
 
 def test_k4_wrapper_refuses_what_the_kernel_does_not_take(card):

@@ -14,7 +14,12 @@ Small decays (caveat R4 in ROADMAP.md): JAX's ``chunked_gla`` masks the
 upper triangle of each chunk by multiplying, and ``exp(la_t − la_s)``
 overflows there, so it gives NaN; the TPU kernel, the sequential version
 and the port select instead and stay finite.
+
+Last, the variants of the card-only measurement tool ``probe.py`` still
+apply to the kernel source they patch.
 """
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +30,7 @@ from repro.kernels.ssm_scan import gla_scan as j_gla_scan
 from repro.kernels.ssm_scan import gla_scan_ref as j_gla_scan_ref
 from repro.models.ssm import chunked_gla as j_chunked_gla
 from repro.models.ssm import gla_step as j_gla_step
-from repro_torch.kernels.ssm_scan import ops, ref
+from repro_torch.kernels.ssm_scan import ops, probe, ref
 from repro_torch.models.ssm import chunked_gla, gla_step
 
 SCAN_TOL = 2e-4
@@ -252,3 +257,15 @@ def test_cpu_wrapper_rejects_what_the_kernel_does_not_take():
         ops.gla_scan(a.to("meta"), k, v, k)
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.gla_scan(*(x.to("meta") for x in (a, k, v, k)))
+
+
+@pytest.mark.parametrize("name", sorted(probe.PATCHES))
+def test_k4_probe_variants_apply_to_the_kernel_source(name):
+    """Every variant of the K4 probe finds each of its anchors once in
+    ``csrc/gla_scan.cu`` (``variant_source`` raises otherwise), so the
+    probe still builds after an edit of the kernel. Every variant, the
+    base too, drops the chunks other than 64."""
+    src = probe.variant_source(name)
+    assert src != ops.SOURCE.read_text()
+    assert (src == probe.variant_source("base")) == (name == "base")
+    assert re.search(r"@\d", src) is None
