@@ -24,10 +24,15 @@ without printing its result line:
    parameters) and at a ragged P = 2,049: K1 (dense; masked with inf/NaN
    rows; bf16 gradients into f32) and K2 (update f32; update of bf16
    params; delta) against their plain PyTorch versions on the card,
-   K2 against K1 → update bitwise, masked rows exact zeros. Times K1 and
-   K2 at the Fig-1 shape with CUDA events over 60 launches, the L2 cache
-   flushed before each (and back to back), beside the plain versions,
+   K2 against K1 → update bitwise, masked rows exact zeros. Prints the
+   kernels' geometry at the Fig-1 shape: blocks (one a SM), the span of
+   P a block owns, rows a stage, stages, and the bytes in flight a SM.
+   Times K1 and K2 at the Fig-1 shape with CUDA events over 60 launches,
+   the L2 cache flushed before each by a pass that reads a 256 MB
+   buffer through (it leaves the L2 holding clean lines of that buffer
+   and none of the inputs), and back to back, beside the plain versions,
    the one PyTorch call that computes the same function, and the bound.
+   K3 and K4 are timed the same way.
 4. Fig-1 phase: the paper's Fig-1 training loop at full width through
    ``ClientSimulator`` with ``use_kernel=True``: alg1, benchmark1,
    benchmark2 and oracle with sgd(0.05) (kernel K2), alg1 with momentum
@@ -138,15 +143,24 @@ def check(cond, what):
         raise AssertionError(what)
 
 
+def flush_buffer(torch):
+    """The 256 MB buffer ``time_ms`` reads through, written once."""
+    return torch.zeros(64 * 2 ** 20, dtype=torch.float32, device=DEVICE)
+
+
 def time_ms(torch, fn, flush, n=TIMED_LAUNCHES):
     """Mean ms per call over ``n`` calls: (flushed, warm). The flushed
-    figure zeroes a 256 MB buffer before each call so no input is left
-    in the 50 MB L2; the warm figure runs the calls back to back."""
+    figure reads the 256 MB ``flush`` buffer through (its sum into a
+    scalar) before each call, so the 50 MB L2 holds none of the inputs,
+    only clean lines of the buffer: a pass that wrote it would leave up
+    to 50 MB of dirty lines for the timed call to write back. The warm
+    figure runs the calls back to back."""
+    sink = torch.empty((), dtype=torch.float32, device=DEVICE)
     for _ in range(min(3, n)):
         fn()
     pairs = []
     for _ in range(n):
-        flush.zero_()
+        torch.sum(flush, dim=0, out=sink)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -247,7 +261,19 @@ def kernel_phase(torch, ops, ref, peaks):
               f"(max abs err K1 {errs['k1']:.3g}, K2 {errs['k2']:.3g})")
         if p != 316_554:
             continue
-        flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=DEVICE)
+        geo = ops.geometry(p, g.element_size(), ops.sm_count(g.device.index),
+                           g.data_ptr())
+        ring = geo.stages * geo.rows * geo.pitch
+        print(f"k1/k2 geometry at N={n} P={p} f32: {geo.blocks} blocks (one "
+              f"a SM), span {geo.span} columns ({geo.span * 4} B of a row) "
+              f"in chunks of {geo.chunk}, {geo.rows} rows a stage x "
+              f"{geo.stages} stages of {geo.rows * geo.pitch} B: {ring} B "
+              f"({ring / 1024:.1f} KB) in flight a SM")
+        flush = flush_buffer(torch)
+        # The first timing of the script: half a second of flush passes
+        # first, so the card's clocks are up from the build's idle.
+        for _ in range(5000):
+            torch.sum(flush, dim=0)
         gt = g.t()
         calls = {
             "k1": (lambda: ops.masked_scaled_aggregate(g, w),
@@ -501,7 +527,7 @@ def k3_phase(torch, fa_ops, fa_ref, peaks, sm_clock_hz):
             continue
         del want
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=DEVICE)
+        flush = flush_buffer(torch)
         fns = (lambda: fa_ops.flash_attention(q, k, v, causal=True),
                lambda: fa_ref.flash_attention_ref(qt, kt, vt, causal=True),
                lambda: F.scaled_dot_product_attention(
@@ -694,7 +720,7 @@ def k4_phase(torch, ssm_ops, ssm_ref, chunked_gla, peaks):
           f"diff {diff:.3g}")
     del x, want, y32, y64
 
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=DEVICE)
+    flush = flush_buffer(torch)
     timing = {}
     for (label, *_), x in zip(K4_CASES, inputs):
         fns = (lambda: ssm_ops.gla_scan(*x, chunk=K4_CHUNK),

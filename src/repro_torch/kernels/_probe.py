@@ -1,5 +1,6 @@
 """What the kernels' probes share: a source with parts patched, its build,
-timing with the L2 flushed, and the card's name and power limit.
+timing with the L2 flushed or back to back, and the card's name and
+power limit.
 
 A probe's variant is a kernel source with a few lines replaced, each
 anchor found exactly once (the probe fails when the source no longer
@@ -47,15 +48,24 @@ def build(stem: str, text: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
-def flushed_ms(fn, n: int, warmup: int) -> float:
-    """Mean ms a call over ``n`` calls after ``warmup`` calls, a 256 MB
-    buffer zeroed before each timed one."""
-    flush = torch.empty(64 * 2 ** 20, device="cuda")
+def flushed_ms(fn, n: int, warmup: int, write: bool = False) -> float:
+    """Mean ms a call over ``n`` calls after ``warmup`` calls, with the L2
+    left holding none of ``fn``'s inputs before each timed one: a 256 MB
+    buffer, written once, is read through (summed into a scalar), so the
+    L2 holds only clean lines of it. ``write=True`` zeroes the buffer
+    instead, the older flush: the L2 is write-back, so that leaves up to
+    50 MB of dirty lines, which the timed call writes back to HBM as its
+    reads evict them."""
+    flush = torch.zeros(64 * 2 ** 20, device="cuda")
+    sink = torch.empty((), device="cuda")
     for _ in range(warmup):
         fn()
     events = []
     for _ in range(n):
-        flush.zero_()
+        if write:
+            flush.zero_()
+        else:
+            torch.sum(flush, dim=0, out=sink)
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         fn()
@@ -63,6 +73,19 @@ def flushed_ms(fn, n: int, warmup: int) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in events) / n
+
+
+def warm_ms(fn, n: int, warmup: int) -> float:
+    """Mean ms a call over ``n`` calls run back to back."""
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def card_line() -> str:

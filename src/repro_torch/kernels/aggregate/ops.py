@@ -5,7 +5,11 @@ PyTorch version (:mod:`.ref`) for tensors on the CPU. For CUDA tensors
 it launches the CUDA kernel of ``csrc/aggregate.cu`` (built with nvcc
 at first use, :mod:`repro_torch.kernels._build`) or raises; it never
 falls back. The JAX package's VMEM block fitting (``_fit_block``) is a
-TPU rule and has no counterpart here: the kernel tiles P itself.
+TPU rule and has no counterpart here. In its place :func:`geometry`
+cuts P for the card: one block a SM (fewer for a small P), each owning a
+span of P in whole 16-byte units, the span streamed through a ring of shared-memory stages
+of a few rows each, and each row read at its shift inside its first
+16-byte unit. The kernel takes that geometry as it is given.
 
 ``launch_counts`` counts the kernel launches of each wrapper, so a run
 can show that its path went through the kernels; CPU calls add nothing.
@@ -14,6 +18,8 @@ can show that its path went through the kernels; CPU calls add nothing.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import astuple, dataclass
 from pathlib import Path
 
 import torch
@@ -33,6 +39,109 @@ launch_counts = {"masked_scaled_aggregate": 0,
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
 
+# Mirrors of csrc/aggregate.cu: the consumer threads of a block, the
+# columns each sums in a chunk, the ring's most stages, the bytes of
+# their mbarriers and the shared memory a block may use.
+CONSUMERS, COLS_PER_THREAD, MAX_STAGES = 256, 10, 16
+BAR_BYTES, MAX_SMEM = 2 * MAX_STAGES * 8, 232_448
+#: The fewest 16-byte units of a row a block owns: a small P runs fewer
+#: blocks than SMs, as fast as one block a SM and leaving the other SMs
+#: free (the probe's "least span" lines at P = 2,049 and 20,000).
+MIN_UNITS = 16
+#: Shared-memory bytes of a block's ring: what it keeps in flight.
+RING_BYTES = 192 * 1024
+#: A stage takes rows (1, 2, 4 or 8) until it holds this many bytes:
+#: fewer, larger stages pay fewer barrier round trips (the probe's rows
+#: variants at the Fig-1 shape).
+STAGE_BYTES = 64 * 1024
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """How the kernel cuts an (N, P) gradient buffer.
+
+    ``blocks`` blocks (at most one a SM) each own ``span`` columns, a
+    whole number of 16-byte units; block b owns [b·span, min((b+1)·span,
+    P)). :func:`geometry` launches no block past P; the kernel lets a
+    block that owns nothing return. A block walks its span ``chunk`` columns at a
+    time; a stage of its ring holds ``rows`` rows of a chunk, each
+    ``pitch`` bytes in shared memory, and the ring has ``stages``
+    stages. Row n's run is copied from its aligned-down start and read
+    at :meth:`shift`, from ``head`` (the byte offset of g in its 16-byte
+    unit) and ``step`` (P·esize mod 16).
+    """
+    blocks: int
+    span: int
+    chunk: int
+    rows: int
+    stages: int
+    pitch: int
+    head: int
+    step: int
+    esize: int
+
+    def spans(self, p):
+        """The (start, end) column range of each block that owns any."""
+        return [(b * self.span, min((b + 1) * self.span, p))
+                for b in range(self.blocks) if b * self.span < p]
+
+    def shift(self, n):
+        """Elements between row n's aligned-down start and its first one
+        (the same for every span: a span starts on a 16-byte unit)."""
+        return (self.head + n * self.step) % 16 // self.esize
+
+    @property
+    def smem(self):
+        """Dynamic shared memory of a block, bytes: the barriers and the
+        ring."""
+        return BAR_BYTES + self.stages * self.rows * self.pitch
+
+
+class _CGeometry(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int) for name in
+                ("blocks", "span", "chunk", "rows", "stages", "pitch", "head",
+                 "step")]
+
+
+def geometry(p, esize, blocks, offset=0, min_units=MIN_UNITS):
+    """The kernel's geometry for rows of ``p`` elements of ``esize``
+    bytes, at most ``blocks`` blocks, each owning ``min_units`` 16-byte
+    units of a row or more where ``p`` allows, g at byte ``offset`` (its
+    address, or its address mod 16)."""
+    unit = 16 // esize
+    units = -(-p // unit)
+    span_units = -(-units // max(1, min(blocks, units // min_units)))
+    blocks = -(-units // span_units)
+    chunks = -(-span_units * unit // (CONSUMERS * COLS_PER_THREAD))
+    chunk = -(-span_units // chunks) * unit
+    pitch = chunk * esize + 16
+    rows = 1
+    while rows < 8 and rows * pitch < STAGE_BYTES:
+        rows *= 2
+    stages = max(2, min(MAX_STAGES, RING_BYTES // (rows * pitch)))
+    return Geometry(blocks, span_units * unit, chunk, rows, stages, pitch,
+                    offset % 16, p * esize % 16, esize)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index):
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def c_geometry(geo):
+    """``geo`` as the kernel's C struct."""
+    return _CGeometry(*astuple(geo)[:8])
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_geometry(p, esize, device_index, head):
+    return c_geometry(geometry(p, esize, sm_count(device_index), head))
+
+
+def _geometry_arg(g):
+    return ctypes.byref(_launch_geometry(g.shape[1], g.element_size(),
+                                         g.device.index, g.data_ptr() % 16))
+
 
 def reset_launch_counts():
     for name in launch_counts:
@@ -43,16 +152,21 @@ def load():
     """Build (if needed) and load the kernels' shared library."""
     global _lib
     if _lib is None:
-        lib = _build.load_library(SOURCE)
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.masked_scaled_aggregate.argtypes = [
-            ptr, i32, ptr, ptr, ptr, i32, i32, i64, ptr]
-        lib.masked_scaled_aggregate_update.argtypes = [
-            ptr, i32, ptr, ptr, ptr, ptr, i32, ptr, i32, i32, i64, ptr]
-        lib.masked_scaled_aggregate.restype = i32
-        lib.masked_scaled_aggregate_update.restype = i32
-        _lib = lib
+        _lib = bind(_build.load_library(SOURCE))
     return _lib
+
+
+def bind(lib):
+    """Declare the C entry points' arguments on a loaded library."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    geo = ctypes.POINTER(_CGeometry)
+    lib.masked_scaled_aggregate.argtypes = [
+        ptr, i32, ptr, ptr, ptr, i32, i32, i64, geo, ptr]
+    lib.masked_scaled_aggregate_update.argtypes = [
+        ptr, i32, ptr, ptr, ptr, ptr, i32, ptr, i32, i32, i64, geo, ptr]
+    lib.masked_scaled_aggregate.restype = i32
+    lib.masked_scaled_aggregate_update.restype = i32
+    return lib
 
 
 def _on_cpu(*tensors) -> bool:
@@ -104,9 +218,11 @@ def _stream():
 
 
 def _raise_on(rc, name):
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}"
-                           if rc > 0 else f"{name}: unsupported dtypes")
+    if rc > 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    if rc < 0:
+        raise RuntimeError(f"{name}: unsupported dtypes" if rc == -1
+                           else f"{name}: the kernel refused its geometry")
 
 
 def masked_scaled_aggregate(g, w, out_dtype=None, mask=None):
@@ -125,7 +241,7 @@ def masked_scaled_aggregate(g, w, out_dtype=None, mask=None):
     with torch.cuda.device(g.device):
         rc = load().masked_scaled_aggregate(
             _ptr(g), _DTYPE_CODES[g.dtype], _ptr(w), _ptr(mask), _ptr(out),
-            _DTYPE_CODES[out_dtype], n, p, _stream())
+            _DTYPE_CODES[out_dtype], n, p, _geometry_arg(g), _stream())
     _raise_on(rc, "masked_scaled_aggregate")
     launch_counts["masked_scaled_aggregate"] += 1
     return out
@@ -159,7 +275,7 @@ def masked_scaled_aggregate_update(g, w, eta, params=None, mask=None, *,
         rc = load().masked_scaled_aggregate_update(
             _ptr(g), _DTYPE_CODES[g.dtype], _ptr(w), _ptr(mask), _ptr(eta_t),
             _ptr(params), _DTYPE_CODES.get(getattr(params, "dtype", None), 0),
-            _ptr(out), _DTYPE_CODES[out_dtype], n, p, _stream())
+            _ptr(out), _DTYPE_CODES[out_dtype], n, p, _geometry_arg(g), _stream())
     _raise_on(rc, "masked_scaled_aggregate_update")
     launch_counts["masked_scaled_aggregate_update"] += 1
     return out

@@ -17,6 +17,8 @@ The CUDA kernels themselves run only on the card:
 ``test_torch_cuda.py`` holds them against the plain versions there.
 """
 
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +31,7 @@ from repro.kernels.aggregate import ref as jref
 from repro.optim import sgd as jsgd
 from repro_torch.core import aggregation as tagg
 from repro_torch.kernels.aggregate import ops as tops
+from repro_torch.kernels.aggregate import probe as tprobe
 from repro_torch.optim import apply_updates, momentum, sgd
 
 SHAPES = [(1, 1), (8, 300), (40, 1000), (40, 2049)]
@@ -261,3 +264,96 @@ def test_wrapper_checks():
     before = dict(tops.launch_counts)
     tops.masked_scaled_aggregate(g, w)
     assert tops.launch_counts == before, "CPU calls launch no kernel"
+
+
+@pytest.mark.parametrize("p", [1, 3, 5, 17, 2049, 316_554, 10_000_019])
+@pytest.mark.parametrize("esize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("blocks", [132, 7])
+def test_geometry_spans_cover_p_once_on_16_byte_units(p, esize, blocks):
+    """The card kernel's cut of P (``ops.geometry``): the blocks' spans
+    cover [0, P) once, in order, each starting on a 16-byte unit and
+    ending on one or at P; every block launched owns columns, at most
+    ``blocks`` of them, and fewer only where the span is at least
+    ``MIN_UNITS`` 16-byte units; a chunk, a stage and the ring fit what
+    the kernel takes."""
+    geo = tops.geometry(p, esize, blocks)
+    spans = geo.spans(p)
+    assert spans[0][0] == 0 and spans[-1][1] == p
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert all(start < end for start, end in spans)
+    for start, end in spans:
+        assert start * esize % 16 == 0
+        assert end == p or end * esize % 16 == 0
+    assert len(spans) == geo.blocks <= blocks
+    assert geo.blocks == blocks or geo.span * esize // 16 >= tops.MIN_UNITS or geo.blocks == 1
+    assert geo.span * esize % 16 == 0 and geo.chunk * esize % 16 == 0
+    assert geo.chunk <= min(geo.span, tops.CONSUMERS * tops.COLS_PER_THREAD)
+    assert geo.pitch % 16 == 0 and geo.pitch >= geo.chunk * esize + 16
+    assert geo.rows in (1, 2, 4, 8) and 2 <= geo.stages <= tops.MAX_STAGES
+    assert geo.smem <= tops.MAX_SMEM
+
+
+def test_geometry_at_the_fig1_shape():
+    """One block a SM on a 132-SM card: 2,400 columns (9.6 KB of an f32
+    row) a block in one chunk, eight rows a stage, two stages, ~150 KB a
+    block in flight; the last block owns the ragged rest."""
+    geo = tops.geometry(316_554, 4, 132)
+    assert (geo.span, geo.chunk, geo.rows, geo.stages) == (2400, 2400, 8, 2)
+    assert geo.spans(316_554)[-1] == (131 * 2400, 316_554)
+    assert geo.stages * geo.rows * geo.pitch == 153_856
+
+
+@pytest.mark.parametrize("p,esize,blocks", [(2049, 4, 31), (2049, 2, 16), (4096, 4, 64),
+                                            (1, 4, 1), (8_448, 4, 132), (20_000, 4, 132)])
+def test_geometry_small_p_runs_few_blocks(p, esize, blocks):
+    """A small P runs fewer blocks than SMs, each owning at least
+    ``MIN_UNITS`` 16-byte units of a row (256 B at 16), rather than 132
+    blocks of a few columns; from 132 × ``MIN_UNITS`` units on, one
+    block a SM. With ``min_units=1`` the span is the fewest units that
+    132 blocks cover P with."""
+    geo = tops.geometry(p, esize, 132)
+    assert geo.blocks == blocks
+    units = -(-p * esize // 16)
+    assert geo.blocks == 1 or geo.span * esize // 16 >= tops.MIN_UNITS
+    assert tops.geometry(p, esize, 132, min_units=1).span * esize // 16 == -(-units // 132)
+
+
+@pytest.mark.parametrize("p", [1, 3, 5, 17, 2049, 316_554])
+@pytest.mark.parametrize("esize,offset", [(4, 0), (4, 4), (4, 12), (2, 0),
+                                          (2, 2), (2, 14)])
+def test_geometry_row_shifts(p, esize, offset):
+    """Row n of a span starting at column s begins (n·P + s)·esize bytes
+    past g, ``shift(n)`` elements into its 16-byte unit, whatever the
+    span and for g at any offset (a view at an odd storage offset)."""
+    n_rows = 45
+    geo = tops.geometry(p, esize, 5, offset=1024 + offset)
+    for start, _ in geo.spans(p):
+        for n in range(n_rows):
+            byte = offset + (n * p + start) * esize
+            assert geo.shift(n) * esize == byte % 16
+
+
+@pytest.mark.parametrize("name", sorted(tprobe.PATCHES))
+def test_k12_probe_variants_apply_to_the_kernel_source(name):
+    """Every variant of the K1/K2 probe finds each of its anchors once in
+    ``csrc/aggregate.cu`` (``variant_source`` raises otherwise), so the
+    probe still builds after an edit of the kernel; a variant that only
+    changes the geometry builds the kernel as it is."""
+    src = tprobe.variant_source(name)
+    assert (src == tops.SOURCE.read_text()) == (not tprobe.PATCHES[name])
+    assert name == "base" or tprobe.PATCHES[name] or name in tprobe.GEOMETRY
+
+
+def test_k12_probe_imports_another_checkout():
+    """``probe trees`` reaches another checkout's kernels through its
+    public wrappers: ``other_tree`` imports that checkout's ``ops`` as a
+    module of its own and leaves this checkout's in place. Here the
+    other checkout is this one; on the CPU both wrappers take the plain
+    version, so they agree bitwise."""
+    root = tops.SOURCE.parents[5]
+    other = tprobe.other_tree(str(root))
+    assert other is not tops and other.SOURCE == tops.SOURCE
+    assert sys.modules["repro_torch.kernels.aggregate.ops"] is tops
+    g, w = torch.randn(5, 7), torch.rand(5)
+    assert torch.equal(other.masked_scaled_aggregate(g, w),
+                       tops.masked_scaled_aggregate(g, w))

@@ -27,6 +27,9 @@ version on the same inputs: ``max|K4 − plain| ≤ 1e-4·max|plain|``, as in
 ``chip_smoke.py``; strided views bitwise equal to contiguous copies.
 """
 
+import ctypes
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -130,6 +133,128 @@ def test_bf16_forms(card):
         ref.masked_scaled_aggregate_update_ref(
             g, w, 0.05, params.to(torch.bfloat16)).float(),
         rtol=2 ** -8, atol=1e-6)
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+AGG_EDGES = [  # n, p, g dtype
+    # P of 1, 3, 5 and 17: one block, and the tensor's partial 16-byte
+    # units are plain loads (test_aggregate_blocks_past_p_own_nothing
+    # launches one block a SM there).
+    (5, 1, F32), (5, 3, F32), (5, 5, F32), (5, 17, F32),
+    # Every residue of P mod 4: every row shift of an f32 row.
+    (7, 1_000, F32), (7, 1_001, F32), (7, 1_002, F32), (7, 1_003, F32),
+    # bf16 rows of odd P: shifts of 1..7 elements.
+    (9, 2_049, BF16), (6, 999, BF16), (3, 7, BF16),
+    (1, 5_000, F32),      # one row
+    (1_100, 513, F32),    # more rows than a 1,024-row stage of w and mask
+    (3, 600_001, F32),    # spans of several chunks
+]
+
+
+def _check_forms(g, w, m, params, eta):
+    """K1, K2 and the delta against their plain versions (bf16 g into
+    f32 at 1e-5); K2 equal to K1 → update bitwise."""
+    tol = 1e-6 if g.dtype == torch.float32 else 1e-5
+    k1 = ops.masked_scaled_aggregate(g, w, out_dtype=torch.float32, mask=m)
+    torch.testing.assert_close(
+        k1, ref.masked_scaled_aggregate_ref(g, w, m, torch.float32),
+        rtol=tol, atol=tol)
+    k2 = ops.masked_scaled_aggregate_update(g, w, eta, params, m)
+    torch.testing.assert_close(
+        k2, ref.masked_scaled_aggregate_update_ref(g, w, eta, params, m),
+        rtol=tol, atol=tol)
+    delta = ops.masked_scaled_aggregate_update(g, w, eta, None, m)
+    torch.testing.assert_close(
+        delta, ref.masked_scaled_aggregate_update_ref(g, w, eta, None, m),
+        rtol=tol, atol=tol)
+    assert torch.equal(k2, params + (-eta * k1))
+    return k1, k2, delta
+
+
+@pytest.mark.parametrize("n,p,dtype", AGG_EDGES)
+@pytest.mark.parametrize("masked", [False, True], ids=["dense", "masked"])
+def test_aggregate_design_edges(card, n, p, dtype, masked):
+    g, w, mask, params = _operands(n, p, 7 * n + p)
+    _check_forms(g.to(dtype), w, mask if masked else None, params,
+                 torch.tensor(0.05, device=card))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("p", [1, 17, 2_049])
+def test_aggregate_blocks_past_p_own_nothing(card, p, dtype):
+    """One block a SM at a P of fewer 16-byte units than SMs (the
+    wrappers' geometry launches fewer blocks there), through the C entry
+    points: the blocks past P own nothing and return, and K1 and K2 give
+    the wrappers' bits."""
+    n = 40
+    g, w, mask, params = _operands(n, p, 11)
+    g = g.to(dtype)
+    eta = torch.tensor(0.05, device=card)
+    geo = dataclasses.replace(
+        ops.geometry(p, g.element_size(), 132, g.data_ptr(), min_units=1), blocks=132)
+    assert geo.spans(p)[-1][1] == p and len(geo.spans(p)) < geo.blocks
+    c_geo = ctypes.byref(ops.c_geometry(geo))
+    lib, stream = ops.load(), torch.cuda.current_stream()
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    for m in (None, mask):
+        m_ptr = None if m is None else m.data_ptr()
+        k1, k2 = torch.empty(p, device=card), torch.empty(p, device=card)
+        assert lib.masked_scaled_aggregate(
+            g.data_ptr(), code, w.data_ptr(), m_ptr, k1.data_ptr(), 0, n, p, c_geo,
+            stream.cuda_stream) == 0
+        assert lib.masked_scaled_aggregate_update(
+            g.data_ptr(), code, w.data_ptr(), m_ptr, eta.data_ptr(), params.data_ptr(), 0,
+            k2.data_ptr(), 0, n, p, c_geo, stream.cuda_stream) == 0
+        assert torch.equal(k1, ops.masked_scaled_aggregate(g, w, torch.float32, m))
+        assert torch.equal(k2, ops.masked_scaled_aggregate_update(g, w, eta, params, m))
+
+
+def test_aggregate_every_row_masked(card):
+    g, w, _, params = _operands(40, 2_049, 5)
+    mask = torch.zeros(40, device=card)
+    k1, k2, delta = _check_forms(g, w, mask, params, torch.tensor(0.05, device=card))
+    assert not k1.any() and not delta.any() and torch.equal(k2, params)
+
+
+def test_aggregate_masked_row_with_inf_weight_gives_nan(card):
+    """A masked row still adds w[n]·0 in its place, so an inf weight
+    there gives NaN in every column, as the plain version (and the JAX
+    kernel's select-then-dot) does."""
+    g, w, mask, params = _operands(40, 2_049, 6)
+    w[mask == 0] = float("inf")
+    want = ref.masked_scaled_aggregate_ref(g, w, mask)
+    got = ops.masked_scaled_aggregate(g, w, mask=mask)
+    assert want.isnan().all() and got.isnan().all()
+    got2 = ops.masked_scaled_aggregate_update(g, w, 0.05, params, mask)
+    assert got2.isnan().all()
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("p", [316_554, 2_049])
+def test_aggregate_view_at_odd_storage_offset(card, dtype, p):
+    """g one element into its storage, so g's first 16-byte unit is
+    partial: the kernel reads no byte outside g and gives the bits of a
+    copy at offset 0."""
+    n = 40
+    gen = torch.Generator(device="cuda").manual_seed(p)
+    g = torch.randn(n * p + 1, device=card, generator=gen).to(dtype)[1:].view(n, p)
+    assert g.data_ptr() % 16 != 0
+    _, w, mask, params = _operands(n, p, 8)
+    for m in (None, mask):
+        _check_forms(g, w, m, params, torch.tensor(0.05, device=card))
+        assert torch.equal(ops.masked_scaled_aggregate(g, w, mask=m),
+                           ops.masked_scaled_aggregate(g.clone(), w, mask=m))
+
+
+def test_aggregate_two_launches_bitwise_equal(card):
+    g, w, mask, params = _operands(40, 316_554, 9)
+    for gg in (g, g.to(torch.bfloat16)):
+        for m in (None, mask):
+            assert torch.equal(ops.masked_scaled_aggregate(gg, w, mask=m),
+                               ops.masked_scaled_aggregate(gg, w, mask=m))
+            assert torch.equal(
+                ops.masked_scaled_aggregate_update(gg, w, 0.05, params, m),
+                ops.masked_scaled_aggregate_update(gg, w, 0.05, params, m))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
