@@ -43,7 +43,22 @@ without printing its result line:
    matvec (``use_kernel=False``) as the reference the kernel run must
    agree with, and a last run under ``torch.profiler`` prints where a
    step's device time goes and the device's busy share.
-5. K3 phase: the flash-attention kernel against its plain version
+5. Engine phase: the experiments engine (``repro_torch.experiments``)
+   at the Fig-1 width, with the Fig-1 phase's data and batcher, through
+   the kernels (``use_kernel=True``) under deterministic cuDNN. The
+   ``fig1`` study (4 cells x seeds 1 and 2 x 40 steps, evaluated every
+   20): K2 must launch once a step of every cell and seed, every cell
+   must stay finite, and the alg1 cell's seed 1 must equal a standalone
+   ``ClientSimulator.run`` of that cell bit for bit (participation,
+   parameters, evaluations). The ``population_scaling`` study at
+   n = 10, 20, 40 in a capacity of 40 (one ragged structure group, one
+   seed): K2 launches counted, participation cropped to (steps, n), and
+   the n = 10 cell rerun uncropped, where clients 10..39 must never take
+   part and clients 0..9 must equal the engine's cell. One alg1 cell
+   with momentum: K1 once a step. The counts are set to 0 before each
+   study. Prints each study's cells, seeds, steps, wall seconds and
+   ms/step, beside the standalone run's ms/step.
+6. K3 phase: the flash-attention kernel against its plain version
    computed in f32 from the same inputs, at the prefill shape of the LM
    phase (B = 8, H = 32, S = T = 2,048, Dh = 64, causal, bf16),
    minitron-4b's attention at the same B and S (H = 24, Hkv = 8,
@@ -55,7 +70,7 @@ without printing its result line:
    bound, with the achieved TFLOP/s, the share of the bound, and the
    time the exponentials take at the MUFU rate (one ex2 per visible
    score, 16 a clock per SM at the card's top SM clock).
-6. K4 phase: the gated-linear-recurrence scan through
+7. K4 phase: the gated-linear-recurrence scan through
    ``repro_torch.kernels.ssm_scan.gla_scan`` at the full width of the two
    layers it serves, B = 8 × S = 2,048, chunk 64: zamba2-2.7b's Mamba2
    layer (H = 80, dk = dv = 64; a and v f32, k and q bf16, one row a
@@ -72,7 +87,7 @@ without printing its result line:
    the larger of the bytes and 3 x the operations at the TF32 tensor-core
    rate (3xTF32). The line also prints the bound at the f32 rate, the
    count earlier runs report; the ``kernels`` line holds the route's.
-7. LM phase: stablelm-1.6b at full width (24 layers, d_model 2048, 32
+8. LM phase: stablelm-1.6b at full width (24 layers, d_model 2048, 32
    heads of 64, d_ff 5632, vocab 100352, bf16; random weights from a
    seed). Three prefills of B = 8 × S = 2,048 through
    ``make_prefill_step`` with ``use_flash=True``: the K3 count is set to
@@ -87,7 +102,8 @@ without printing its result line:
    reference prefill of those 448 tokens by the same rule, and 64
    greedy steps. ``torch.profiler`` over one prefill and one decode
    step, and the peak device memory.
-8. Prints the ``kernels`` JSON line, then the result line.
+9. Prints the ``kernels`` JSON line (K1 and K2 also carry the engine
+   phase's counts, ``engine_launches``), then the result line.
 
 Tolerances: f32 aggregate kernels against the plain versions
 rtol=atol=1e-6 (the client sum runs in another order; weights at the
@@ -118,6 +134,9 @@ K4_SOURCE = "src/repro_torch/kernels/ssm_scan/csrc/gla_scan.cu"
 N_CLIENTS, N_GROUPS, BATCH, LR = 40, 4, 16, 0.05
 N_TRAIN, N_TEST = 8000, 800
 STEPS, EVAL_EVERY, REF_STEPS, PROFILE_STEPS = 40, 20, 3, 10
+# Engine phase: the seeds of the fig1 study, the populations of the
+# population_scaling study (at the Fig-1 capacity of 40 clients).
+ENGINE_SEEDS, POPULATIONS = (1, 2), (10, 20, 40)
 TIMED_LAUNCHES = 60
 # LM phase: batch, prefill length, prefills counted, decode prompt,
 # cache slots and greedy steps.
@@ -420,7 +439,139 @@ def fig1_phase(torch, rt):
     profile(torch, f"fig-1 ({PROFILE_STEPS} alg1/sgd steps)", "step",
             lambda: sim.run(key, params0, PROFILE_STEPS), PROFILE_STEPS,
             "aggregate")
-    return launches
+    data = {"batcher": batcher, "params0": params0,
+            "accuracy": lambda p: rt.models.cnn_accuracy(p, test_x, test_y)}
+    return launches, data
+
+
+def engine_phase(torch, rt, data):
+    """The experiments engine at Fig-1 width, through the kernels: the
+    ``fig1`` study against a standalone run, ``population_scaling`` with
+    its padding, and one momentum cell. Returns the launch counts of
+    each study's run."""
+    from repro_torch._tree import tree_map
+
+    rx = rt.experiments
+    ops = rt.kernels.aggregate.ops
+    batcher, params0, accuracy = data["batcher"], data["params0"], data["accuracy"]
+    kw = dict(grads_fn=rt.models.client_grads_fn(batcher), p=batcher.p,
+              optimizer=rt.optim.sgd(LR), use_kernel=True, device=DEVICE)
+    config = rx.ExecutionConfig(eval_fn=accuracy, eval_every=EVAL_EVERY)
+    flat = rt.core.ravel_pytree
+    counts = {}
+
+    def timed(label, fn, expect):
+        """Run ``fn`` with the counts set to 0 before it; check and keep
+        the counts read after it; return its result and wall seconds."""
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts[label] = dict(ops.launch_counts)
+        check(counts[label] == expect,
+              f"engine {label}: launch counts {counts[label]}, expected {expect}")
+        return out, seconds
+
+    def finite(label, result):
+        for name, cell in result.items():
+            check(bool(torch.isfinite(flat(cell.params)).all())
+                  and bool(cell.history.finite.all())
+                  and cell.diverged.tolist() == [-1] * len(cell.diverged),
+                  f"engine {label}: cell {name} not finite")
+
+    # Deterministic cuDNN, so that a cell of the study and a standalone
+    # run of it may be held bit for bit.
+    torch.backends.cudnn.deterministic = True
+    study = rx.get_study("fig1", n_clients=N_CLIENTS, num_steps=STEPS,
+                         taus_profile=[1, 5, 10, 20], seeds=list(ENGINE_SEEDS))
+    n_runs = len(study.resolve()) * len(ENGINE_SEEDS)
+    result, wall = timed("fig1", lambda: study.run(
+        params0=params0, config=config, **kw),
+        {"masked_scaled_aggregate": 0,
+         "masked_scaled_aggregate_update": n_runs * STEPS})
+    finite("fig1", result)
+    sim = study.simulator(**kw)
+    (alg1,) = [sc for sc in study.resolve() if sc.scheduler == "alg1"]
+    scheduler, energy = alg1.build()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, hist, evals = sim.run(
+        rt.random.PRNGKey(ENGINE_SEEDS[0], device=DEVICE), params0, STEPS,
+        scheduler=scheduler, energy=energy, eval_fn=accuracy,
+        eval_every=EVAL_EVERY)
+    torch.cuda.synchronize()
+    alone_ms = (time.perf_counter() - t0) / STEPS * 1e3
+    cell = result[alg1.name]
+    check(torch.equal(cell.history.participation[0], hist.participation)
+          and torch.equal(flat(tree_map(lambda x: x[0], cell.params)),
+                          flat(params))
+          and torch.equal(cell.evals[0], evals),
+          "engine fig1: the alg1 cell's seed differs from a standalone run")
+    accs = " ".join(f"{name} {cell.evals[:, -1].mean().item():.3f}"
+                    for name, cell in result.items())
+    print(f"engine fig1 study: {len(result)} cells x {len(ENGINE_SEEDS)} "
+          f"seeds x {STEPS} steps in {wall:.2f} s, "
+          f"{wall / (n_runs * STEPS) * 1e3:.2f} ms/step with evaluation "
+          f"(standalone alg1 run {alone_ms:.2f} ms/step); "
+          f"{counts['fig1']['masked_scaled_aggregate_update']} K2 launches; "
+          f"the alg1 cell's seed {ENGINE_SEEDS[0]} equals the standalone run "
+          f"bit for bit (participation, {flat(params).numel():,} params, "
+          f"evals); final test acc: {accs}")
+
+    pop = rx.get_study("population_scaling", n_clients=POPULATIONS,
+                       num_steps=STEPS, seeds=[ENGINE_SEEDS[0]])
+    result, wall = timed("population_scaling", lambda: pop.run(
+        params0=params0, **kw),
+        {"masked_scaled_aggregate": 0,
+         "masked_scaled_aggregate_update": len(POPULATIONS) * STEPS})
+    finite("population_scaling", result)
+    for n, cell in zip(POPULATIONS, result.values()):
+        check(tuple(cell.history.participation.shape) == (1, STEPS, n),
+              f"engine population_scaling n={n}: participation shape "
+              f"{tuple(cell.history.participation.shape)}")
+    # The smallest cell again, uncropped: its absent rows never took part.
+    groups = rx.resolve_structure_groups(pop.resolve(), sim=sim)[2]
+    grp = groups[0]
+    check(len(groups) == 1 and grp.ragged, "population_scaling: one ragged group")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, hist = sim.run(rt.random.PRNGKey(ENGINE_SEEDS[0], device=DEVICE),
+                      params0, STEPS, scheduler=grp.scheduler[0],
+                      energy=grp.energy[0], p=grp.p[0], active_mask=grp.active[0])
+    torch.cuda.synchronize()
+    padded_ms = (time.perf_counter() - t0) / STEPS * 1e3
+    n0 = POPULATIONS[0]
+    first = next(iter(result.values()))
+    check(not bool(hist.participation[:, n0:].any()),
+          f"population_scaling n={n0}: an absent client took part")
+    check(torch.equal(hist.participation[:, :n0], first.history.participation[0]),
+          f"population_scaling n={n0}: the engine's cell differs from a "
+          f"standalone padded run")
+    rates = " ".join(f"n={n} {c.history.participation.mean().item():.3f}"
+                     for n, c in zip(POPULATIONS, result.values()))
+    print(f"engine population_scaling study: n = {POPULATIONS} at N_cap "
+          f"{N_CLIENTS}, 1 seed x {STEPS} steps in {wall:.2f} s, "
+          f"{wall / (len(POPULATIONS) * STEPS) * 1e3:.2f} ms/step (standalone "
+          f"padded n={n0} run {padded_ms:.2f} ms/step); "
+          f"{counts['population_scaling']['masked_scaled_aggregate_update']} "
+          f"K2 launches; participation cropped to (steps, n); the n={n0} "
+          f"cell uncropped: rows {n0}..{N_CLIENTS - 1} never took part, rows "
+          f"0..{n0 - 1} equal the engine's; mean participation {rates}")
+
+    one = rx.Study("alg1_momentum", num_steps=STEPS, axes={
+        "scheduler": "alg1", "arrivals": "periodic", "n_clients": N_CLIENTS,
+        "taus_profile": [1, 5, 10, 20], "seeds": [ENGINE_SEEDS[0]]})
+    result, wall = timed("momentum", lambda: one.run(
+        params0=params0, **dict(kw, optimizer=rt.optim.momentum(LR * 0.1, beta=0.9))),
+        {"masked_scaled_aggregate": STEPS, "masked_scaled_aggregate_update": 0})
+    finite("momentum", result)
+    torch.backends.cudnn.deterministic = False
+    print(f"engine momentum cell: 1 cell x 1 seed x {STEPS} steps in "
+          f"{wall:.2f} s, {wall / STEPS * 1e3:.2f} ms/step; "
+          f"{counts['momentum']['masked_scaled_aggregate']} K1 launches")
+    return counts
 
 
 K3_CASES = (  # label, (B, H, Hkv, S, T, Dh), causal, window, dtype name
@@ -912,6 +1063,7 @@ def main():
     import repro_torch.configs
     import repro_torch.core
     import repro_torch.data
+    import repro_torch.experiments
     import repro_torch.kernels.aggregate
     import repro_torch.models
     import repro_torch.optim
@@ -956,7 +1108,9 @@ def main():
     k4_build_report(torch, _build, ssm_ops)
 
     errs, timing = kernel_phase(torch, ops, ref, peaks)
-    launches = fig1_phase(torch, rt)
+    launches, fig1_data = fig1_phase(torch, rt)
+    engine_counts = engine_phase(torch, rt, fig1_data)
+    del fig1_data
     k3_err, k3_timing = k3_phase(torch, fa_ops, fa_ref, peaks, sm_clock_hz)
     launches["gla_scan"], k4_err, k4_timing = k4_phase(
         torch, ssm_ops, ssm_ref, chunked_gla, peaks)
@@ -983,6 +1137,10 @@ def main():
             "library_ms": t["library_ms"], "warm_ms": t["warm_ms"],
             "plain_warm_ms": t["plain_warm_ms"],
             "library_warm_ms": t["library_warm_ms"]})
+        if key in ("k1", "k2"):
+            # The engine phase's runs, each counted from 0.
+            kernels[-1]["engine_launches"] = {
+                label: c[name] for label, c in engine_counts.items()}
         if key == "k3":
             kernels[-1]["shapes"] = k3_timing
     # K4's main path is one scan at each of two shapes: its times and bound

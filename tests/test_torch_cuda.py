@@ -22,6 +22,10 @@ stablelm serving slice on the card (f32, through K3) against the same
 slice on the CPU (through the plain version) to ``rtol=atol=1e-4``, the
 tolerance ``test_torch_lm.py`` holds the port to against JAX.
 
+The experiments engine on the card: the quadratic ``fig1`` study runs
+each cell and seed through K2, one launch a step, and each cell's seed
+equals a standalone ``ClientSimulator.run`` bit for bit.
+
 K4 (the gated-linear-recurrence scan) against its plain sequential
 version on the same inputs: ``max|K4 − plain| ≤ 1e-4·max|plain|``, as in
 ``chip_smoke.py``; strided views bitwise equal to contiguous copies.
@@ -36,7 +40,8 @@ import torch
 
 from repro_torch import random as trandom
 from repro_torch.core import (ClientSimulator, DeterministicArrivals,
-                              make_scheduler, ravel_pytree)
+                              make_quadratic, make_scheduler, ravel_pytree)
+from repro_torch.experiments import get_study
 from repro_torch.data import ClientBatcher
 from repro_torch.configs import get_config
 from repro_torch.kernels.aggregate import ops, ref
@@ -302,6 +307,47 @@ def test_slice_on_card_matches_cpu(card):
     assert torch.equal(cuda_hist.participation.cpu(), cpu_hist.participation)
     torch.testing.assert_close(ravel_pytree(cuda_params).cpu(),
                                ravel_pytree(cpu_params), rtol=1e-4, atol=1e-5)
+
+
+def test_fig1_study_on_card_through_k2(card):
+    """The quadratic ``fig1`` study on the card through the engine: one
+    K2 launch a step of every cell and seed, none of K1, and each cell's
+    seed bit for bit a standalone ``ClientSimulator.run`` of that cell;
+    participation equal to the same study on the CPU."""
+    n, steps, seeds = 8, 12, [1, 4]
+    problem = make_quadratic(trandom.PRNGKey(0, device=card), n, dim=8)
+    study = get_study("fig1", n_clients=n, num_steps=steps, seeds=seeds)
+    grads = lambda w, k, t: problem.all_grads(w, key=k, noise=0.05)
+    w0 = torch.full((8,), 5.0, device=card)
+    kw = dict(grads_fn=grads, p=problem.p, optimizer=sgd(0.01),
+              loss_fn=problem.suboptimality, use_kernel=True)
+    ops.reset_launch_counts()
+    result = study.run(params0=w0, device=card, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts == {
+        "masked_scaled_aggregate": 0,
+        "masked_scaled_aggregate_update": len(result) * len(seeds) * steps}
+    sim = study.simulator(device=card, **kw)
+    for sc in study.resolve():
+        cell = result[sc.name]
+        assert cell.params.device.type == "cuda"
+        assert cell.diverged.tolist() == [-1, -1]
+        scheduler, energy = sc.build()
+        for r, s in enumerate(seeds):
+            params, hist = sim.run(trandom.PRNGKey(s, device=card), w0, steps,
+                                   scheduler=scheduler, energy=energy)
+            assert torch.equal(cell.params[r], params)
+            for x, y in zip(cell.history, hist):
+                assert torch.equal(x[r], y)
+    cpu = problem._replace(**{f: getattr(problem, f).cpu()
+                              for f in ("a", "b", "p", "w_star")})
+    on_cpu = study.run(
+        params0=w0.cpu(), device="cpu", optimizer=sgd(0.01), p=cpu.p,
+        grads_fn=lambda w, k, t: cpu.all_grads(w, key=k, noise=0.05),
+        loss_fn=cpu.suboptimality, use_kernel=True)
+    for name in result:
+        assert torch.equal(result[name].history.participation.cpu(),
+                           on_cpu[name].history.participation)
 
 
 K3_CASES = [  # (B, H, Hkv, S, T, Dh), causal, window, dtype

@@ -1,4 +1,5 @@
-"""The port stands alone: no module of ``repro_torch``, and not the root
+"""The port stands alone: no module of ``repro_torch``, no file of the
+port's ``examples_torch/`` and ``benchmarks_torch/``, and not the root
 ``chip_smoke.py``, imports JAX or the JAX package ``repro``."""
 
 import ast
@@ -10,8 +11,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(
+    path for d in ("src/repro_torch", "examples_torch", "benchmarks_torch")
+    for path in (ROOT / d).rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -32,19 +34,43 @@ def test_no_jax_or_repro_import(path):
         assert top not in FORBIDDEN, f"{path.name} imports {name}"
 
 
-def test_port_imports_with_jax_blocked():
-    """Every module of the port imports with ``jax`` and ``repro`` made
-    unimportable."""
-    modules = sorted(
+def _port_modules():
+    return sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
         .removesuffix(".__init__")
         for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
+
+
+def test_port_modules_include_the_experiments_engine():
+    modules = _port_modules()
+    for name in ("repro_torch._lru", "repro_torch.experiments",
+                 "repro_torch.experiments.axes",
+                 "repro_torch.experiments.engine",
+                 "repro_torch.experiments.results",
+                 "repro_torch.experiments.scenario",
+                 "repro_torch.experiments.study"):
+        assert name in modules
+    scripts = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {"examples_torch/quickstart.py", "examples_torch/paper_cifar.py",
+            "benchmarks_torch/theory.py"} <= scripts
+
+
+def test_port_imports_with_jax_blocked():
+    """Every module of the port, and the port's examples and benches,
+    import with ``jax`` and ``repro`` made unimportable."""
+    modules = _port_modules()
+    scripts = [str(p) for d in ("examples_torch", "benchmarks_torch")
+               for p in sorted((ROOT / d).glob("*.py"))]
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
+            "import importlib.util\n"
+            f"for i, path in enumerate({scripts!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(f'script{i}', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
