@@ -58,7 +58,28 @@ without printing its result line:
    with momentum: K1 once a step. The counts are set to 0 before each
    study. Prints each study's cells, seeds, steps, wall seconds and
    ms/step, beside the standalone run's ms/step.
-6. K3 phase: the flash-attention kernel against its plain version
+6. Faults and resume phase, with the engine phase's data and CNN under
+   deterministic cuDNN, seed 1, 40 steps a cell: alg1 cells clean, drop
+   at rate 0, drop 0.3, drop_corrupt with every row NaN-poisoned and
+   dropped, stale 0.5 with delay 3, and per-client offline windows
+   through K2 (sgd), and a drop 0.3 cell with momentum through K1; the
+   counts are set to 0 before each run and must equal cells x steps.
+   Rate 0 must equal the clean cell bit for bit; the NaN cell must
+   leave the params unmoved and finite with no delivered weight; stale
+   must deliver less than the clean cell before its delay and the same
+   after; no fault may change the schedule. Each K2 cell is timed alone
+   three times, the cells in turns (host clock, synchronised; the
+   median printed), and profiled over 2 steps (device ops a step, the
+   device's busy share). Then a
+   checkpointed study (clean, drop, stale; chunks of 10) through
+   ``execute_cells_resumable``, bitwise ``execute_cells``, with each
+   group's checkpoint size and the time of one write of it from the
+   card; a child process (this script with ``--resume-child``) runs the
+   same study and SIGKILLs itself after its second checkpoint; the
+   directory is resumed (bitwise the uninterrupted run, only the
+   missing steps launched) and replayed once finished (no launch).
+   Each line carries the card's name and power limit.
+7. K3 phase: the flash-attention kernel against its plain version
    computed in f32 from the same inputs, at the prefill shape of the LM
    phase (B = 8, H = 32, S = T = 2,048, Dh = 64, causal, bf16),
    minitron-4b's attention at the same B and S (H = 24, Hkv = 8,
@@ -70,7 +91,7 @@ without printing its result line:
    bound, with the achieved TFLOP/s, the share of the bound, and the
    time the exponentials take at the MUFU rate (one ex2 per visible
    score, 16 a clock per SM at the card's top SM clock).
-7. K4 phase: the gated-linear-recurrence scan through
+8. K4 phase: the gated-linear-recurrence scan through
    ``repro_torch.kernels.ssm_scan.gla_scan`` at the full width of the two
    layers it serves, B = 8 × S = 2,048, chunk 64: zamba2-2.7b's Mamba2
    layer (H = 80, dk = dv = 64; a and v f32, k and q bf16, one row a
@@ -87,7 +108,7 @@ without printing its result line:
    the larger of the bytes and 3 x the operations at the TF32 tensor-core
    rate (3xTF32). The line also prints the bound at the f32 rate, the
    count earlier runs report; the ``kernels`` line holds the route's.
-8. LM phase: stablelm-1.6b at full width (24 layers, d_model 2048, 32
+9. LM phase: stablelm-1.6b at full width (24 layers, d_model 2048, 32
    heads of 64, d_ff 5632, vocab 100352, bf16; random weights from a
    seed). Three prefills of B = 8 × S = 2,048 through
    ``make_prefill_step`` with ``use_flash=True``: the K3 count is set to
@@ -102,8 +123,9 @@ without printing its result line:
    reference prefill of those 448 tokens by the same rule, and 64
    greedy steps. ``torch.profiler`` over one prefill and one decode
    step, and the peak device memory.
-9. Prints the ``kernels`` JSON line (K1 and K2 also carry the engine
-   phase's counts, ``engine_launches``), then the result line.
+10. Prints the ``kernels`` JSON line (K1 and K2 also carry the engine
+   and faults phases' counts, ``engine_launches`` and
+   ``faults_launches``), then the result line.
 
 Tolerances: f32 aggregate kernels against the plain versions
 rtol=atol=1e-6 (the client sum runs in another order; weights at the
@@ -120,8 +142,11 @@ f32.
 
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -137,6 +162,25 @@ STEPS, EVAL_EVERY, REF_STEPS, PROFILE_STEPS = 40, 20, 3, 10
 # Engine phase: the seeds of the fig1 study, the populations of the
 # population_scaling study (at the Fig-1 capacity of 40 clients).
 ENGINE_SEEDS, POPULATIONS = (1, 2), (10, 20, 40)
+# Faults and resume phase: the cells (name, fault family, its kwargs),
+# alg1 at the Fig-1 width, seed 1; the cells of the checkpointed study,
+# its chunk, and the timing repeats of each cell.
+FAULT_CELLS = (
+    ("clean", None, {}),
+    ("drop_rate0", "drop", {"rate": 0.0}),
+    ("drop", "drop", {"rate": 0.3}),
+    ("drop_corrupt_nan", "drop_corrupt", {"drop_rate": 1.0,
+                                          "corrupt_rate": 1.0,
+                                          "scale": float("nan")}),
+    ("stale", "stale", {"rate": 0.5, "delay": 3}),
+    # Every client offline 4 steps in 20, the windows staggered.
+    ("offline", "offline", {"start": [3 * i % 20 for i in range(N_CLIENTS)],
+                            "length": 4, "period": 20}),
+)
+RESUME_CELLS, CHECKPOINT_EVERY, TIMING_REPEATS = ("clean", "drop", "stale"), 10, 3
+# Steps a fault cell is profiled over: a step's device ops do not vary,
+# and the profiler's own cost grows with the ops it records.
+FAULT_PROFILE_STEPS = 2
 TIMED_LAUNCHES = 60
 # LM phase: batch, prefill length, prefills counted, decode prompt,
 # cache slots and greedy steps.
@@ -197,11 +241,11 @@ def time_ms(torch, fn, flush, n=TIMED_LAUNCHES):
     return flushed, start.elapsed_time(end) / n
 
 
-def profile(torch, label, unit, fn, n_units, keep=None):
+def profile(torch, label, unit, fn, n_units, keep=None, top=8):
     """Print ``torch.profiler``'s view of ``fn`` (``n_units`` steps or
     prefills): wall and device-busy time per unit, the device's busy
-    share of the wall time, and the top kernels by device time (plus any
-    kernel whose name holds ``keep``)."""
+    share of the wall time, and the ``top`` kernels by device time (plus
+    any kernel whose name holds ``keep``)."""
     act = torch.profiler.ProfilerActivity
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
@@ -220,8 +264,8 @@ def profile(torch, label, unit, fn, n_units, keep=None):
           f"({100 * busy_us / wall_us:.1f} % of wall), "
           f"{sum(r[2] for r in rows) / n_units:.0f} device ops/{unit}")
     ranked = sorted(rows, key=lambda r: -r[1])
-    for name, us, count in ranked[:8] + [r for r in ranked[8:]
-                                         if keep and keep in r[0]]:
+    for name, us, count in ranked[:top] + [r for r in ranked[top:]
+                                           if keep and keep in r[0]]:
         print(f"profile {label}:   {100 * us / busy_us:5.1f} %  "
               f"{us / n_units:9.1f} us/{unit}  x{count / n_units:<6.1f} "
               f"{name[:90]}")
@@ -326,9 +370,10 @@ def kernel_phase(torch, ops, ref, peaks):
     return errs, timing
 
 
-def fig1_phase(torch, rt):
-    """The Fig-1 loop at full width, through the kernels."""
-    seed = 0
+def fig1_setup(torch, rt, seed=0):
+    """The Fig-1 data on the card, its client batcher and the CNN's
+    initial parameters, all from ``seed``: (batcher, params0, test_x,
+    test_y)."""
     ds = rt.data.make_confusable_image_classification(
         seed, N_TRAIN + N_TEST, image_shape=(32, 32, 3), similarity=0.9,
         noise=0.8)
@@ -344,6 +389,13 @@ def fig1_phase(torch, rt):
                                  image_hw=32)
     n_params = rt.core.ravel_spec(params0).total
     check(n_params == 316_554, f"CNN has {n_params} parameters")
+    return batcher, params0, test_x, test_y
+
+
+def fig1_phase(torch, rt):
+    """The Fig-1 loop at full width, through the kernels."""
+    seed = 0
+    batcher, params0, test_x, test_y = fig1_setup(torch, rt, seed)
     arrivals = rt.core.make_arrivals("periodic", N_CLIENTS, STEPS)
 
     def evaluate(p):
@@ -571,6 +623,239 @@ def engine_phase(torch, rt, data):
     print(f"engine momentum cell: 1 cell x 1 seed x {STEPS} steps in "
           f"{wall:.2f} s, {wall / STEPS * 1e3:.2f} ms/step; "
           f"{counts['momentum']['masked_scaled_aggregate']} K1 launches")
+    return counts
+
+
+def fault_cells(rt, names=None):
+    """The faults phase's cells (alg1 on the paper's periodic arrivals at
+    the Fig-1 width), those in ``names`` when given, in FAULT_CELLS
+    order."""
+    return [rt.experiments.Scenario(
+        name=name, scheduler="alg1", arrivals="periodic", n_clients=N_CLIENTS,
+        horizon=STEPS + 1, faults=kind, fault_kwargs=dict(kw))
+        for name, kind, kw in FAULT_CELLS if names is None or name in names]
+
+
+def fault_sim(rt, batcher, optimizer):
+    return rt.core.ClientSimulator(
+        grads_fn=rt.models.client_grads_fn(batcher), p=batcher.p,
+        optimizer=optimizer, use_kernel=True, device=DEVICE)
+
+
+def same_cell(torch, a, b):
+    """Two CellResults bit for bit: params, history and ``diverged``."""
+    from repro_torch._tree import tree_leaves
+
+    la, lb = tree_leaves(tuple(a)), tree_leaves(tuple(b))
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def resume_child(ckdir):
+    """The faults phase's checkpointed study, run into ``ckdir`` by a
+    child process that SIGKILLs itself from ``progress`` right after its
+    second checkpoint. Returns only if it was not killed."""
+    import torch
+
+    rt = load_port()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    batcher, params0, _, _ = fig1_setup(torch, rt)
+    saved = []
+
+    def progress(gid, step, num_steps):
+        if step > 0:
+            saved.append(step)
+        if len(saved) == 2:
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    rt.experiments.execute_cells_resumable(
+        fault_cells(rt, RESUME_CELLS),
+        sim=fault_sim(rt, batcher, rt.optim.sgd(LR)), params0=params0,
+        num_steps=STEPS, seeds=[ENGINE_SEEDS[0]], checkpoint_dir=ckdir,
+        checkpoint_every=CHECKPOINT_EVERY, progress=progress)
+    print("resume child: the study ended without being killed",
+          file=sys.stderr)
+    return 1
+
+
+def faults_phase(torch, rt, data, card):
+    """Fault injection and checkpointed, resumable studies at the Fig-1
+    width through K2 and K1. Returns the launch counts of each counted
+    run."""
+    import numpy as np
+
+    from repro_torch._tree import tree_map
+    from repro_torch.checkpoint import latest_step, save_pytree
+
+    phase_t0 = time.perf_counter()
+    rx, ops = rt.experiments, rt.kernels.aggregate.ops
+    k1, k2 = "masked_scaled_aggregate", "masked_scaled_aggregate_update"
+    batcher, params0 = data["batcher"], data["params0"]
+    flat = rt.core.ravel_pytree
+    sgd_sim = fault_sim(rt, batcher, rt.optim.sgd(LR))
+    run = dict(params0=params0, num_steps=STEPS, seeds=[ENGINE_SEEDS[0]])
+    counts = {}
+
+    def counted(label, fn, n_k1, n_k2):
+        """Run ``fn`` with the counts set to 0 before it; check and keep
+        the counts read after it; return its result and wall seconds."""
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts[label] = dict(ops.launch_counts)
+        check(counts[label] == {k1: n_k1, k2: n_k2},
+              f"faults {label}: launch counts {counts[label]}, expected "
+              f"{k1} {n_k1}, {k2} {n_k2}")
+        return out, seconds
+
+    torch.backends.cudnn.deterministic = True
+    cells = fault_cells(rt)
+    res, wall = counted("cells", lambda: rx.execute_cells(
+        cells, sim=sgd_sim, **run), 0, len(cells) * STEPS)
+    (mom,) = fault_cells(rt, ["drop"])
+    mom.name = "drop_momentum"
+    mres, mwall = counted("momentum", lambda: rx.execute_cells(
+        [mom], sim=fault_sim(rt, batcher, rt.optim.momentum(LR * 0.1,
+                                                            beta=0.9)),
+        **run), STEPS, 0)
+
+    clean = res["clean"]
+    p0 = flat(params0)
+    first = lambda cell: flat(tree_map(lambda x: x[0], cell.params))  # noqa: E731
+    wc = clean.history.weight_sum[0]
+    for name, cell in list(res.items()) + list(mres.items()):
+        finite = (bool(torch.isfinite(first(cell)).all())
+                  and bool(cell.history.finite.all())
+                  and cell.diverged.tolist() == [-1])
+        check(finite, f"faults {name}: not finite")
+        check(torch.equal(cell.history.participation,
+                          clean.history.participation),
+              f"faults {name}: the fault changed the schedule")
+        if name not in ("clean", "drop_rate0", "drop_corrupt_nan"):
+            ws = cell.history.weight_sum[0]
+            check(not torch.equal(first(cell), p0)
+                  and bool((ws <= wc).all()) and bool((ws < wc).any()),
+                  f"faults {name}: did not move, or delivered more than "
+                  f"the clean cell")
+    check(same_cell(torch, res["drop_rate0"], clean),
+          "faults: drop at rate 0 differs from the clean cell")
+    leak = res["drop_corrupt_nan"]
+    check(torch.equal(first(leak), p0)
+          and bool((leak.history.weight_sum == 0).all()),
+          "faults drop_corrupt_nan: a dropped NaN row reached the params")
+    ws = res["stale"].history.weight_sum[0]
+    delay = {n: kw for n, _, kw in FAULT_CELLS}["stale"]["delay"]
+    check(bool((ws[:delay] < wc[:delay]).any())
+          and torch.equal(ws[delay:], wc[delay:]),
+          "faults stale: hit rows not dropped before the delay, or "
+          "dropped after it")
+    print(f"faults cells: {len(cells)} cells x 1 seed x {STEPS} steps "
+          f"through K2 in {wall:.2f} s ({counts['cells'][k2]} K2 launches), "
+          f"the drop momentum cell through K1 in {mwall:.2f} s "
+          f"({counts['momentum'][k1]} K1 launches); rate 0 equals the clean "
+          f"cell bit for bit; drop_corrupt NaN: params unmoved, finite, "
+          f"weight_sum 0 on all {STEPS} steps; stale drops hit rows for "
+          f"t < {delay} and delivers all after; final test acc "
+          + " ".join(f"{n} {data['accuracy'](tree_map(lambda x: x[0], c.params)).item():.3f}"
+                     for n, c in list(res.items()) + list(mres.items()))
+          + f" [{card}]")
+
+    # The cells in turns, so that a drift of the host's speed over the
+    # phase touches every cell alike.
+    timed = {name: [] for name, _, _ in FAULT_CELLS}
+    for _ in range(TIMING_REPEATS):
+        for name in timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rx.execute_cells(fault_cells(rt, [name]), sim=sgd_sim, **run)
+            torch.cuda.synchronize()
+            timed[name].append((time.perf_counter() - t0) / STEPS * 1e3)
+    print(f"faults ms/step (host clock, synchronised, median of "
+          f"{TIMING_REPEATS} runs of {STEPS} steps taken in turns, runs in "
+          f"brackets): " + "; ".join(
+              f"{n} {sorted(t)[len(t) // 2]:.2f} "
+              f"[{' '.join(f'{x:.2f}' for x in t)}]"
+              for n, t in timed.items()) + f" [{card}]")
+    # Where a fault's time goes: the device ops a step and the device's
+    # busy share, clean against each family.
+    key = rt.random.PRNGKey(ENGINE_SEEDS[0], device=DEVICE)
+    for name, _, _ in FAULT_CELLS:
+        (sc,) = fault_cells(rt, [name])
+        scheduler, energy = sc.build()
+        faults = sc.build_faults()
+        profile(torch, f"faults {name} ({FAULT_PROFILE_STEPS} steps; {card})",
+                "step", lambda: sgd_sim.run(
+                    key, params0, FAULT_PROFILE_STEPS, scheduler=scheduler,
+                    energy=energy, faults=faults), FAULT_PROFILE_STEPS, top=0)
+
+    rcells = fault_cells(rt, RESUME_CELLS)
+    resumable = dict(run, sim=sgd_sim, checkpoint_every=CHECKPOINT_EVERY)
+    n_resume = len(rcells) * STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        whole_dir = os.path.join(tmp, "whole")
+        whole, wwall = counted("resumable", lambda: rx.execute_cells_resumable(
+            rcells, checkpoint_dir=whole_dir, **resumable), 0, n_resume)
+        for name in RESUME_CELLS:
+            check(same_cell(torch, whole[name], res[name]),
+                  f"faults resume: the checkpointed {name} cell differs from "
+                  f"execute_cells")
+        manifest = json.load(open(os.path.join(whole_dir, "manifest.json")))
+        sizes = []
+        for gid, grp in manifest["groups"].items():
+            step = latest_step(os.path.join(whole_dir, gid))
+            path = os.path.join(whole_dir, gid, f"step_{step}.npz")
+            with np.load(path) as npz:
+                tree = {k: torch.from_numpy(npz[k]).to(DEVICE)
+                        for k in npz.files}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_pytree(os.path.join(tmp, "rewrite.npz"), tree)
+            ms = (time.perf_counter() - t0) * 1e3
+            sizes.append(f"{gid} ({'+'.join(grp['members'])}) "
+                         f"{os.path.getsize(path) / 1e6:.1f} MB, write "
+                         f"{ms:.1f} ms")
+        print(f"faults checkpoint: {len(rcells)} cells x {STEPS} steps in "
+              f"chunks of {CHECKPOINT_EVERY}, {wwall:.2f} s, bitwise "
+              f"execute_cells; a group's newest checkpoint and one write of "
+              f"it from the card (device to host, npz, fsync, rename): "
+              + "; ".join(sizes) + f" [{card}]")
+
+        killed_dir = os.path.join(tmp, "killed")
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--resume-child",
+             killed_dir], capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        check(child.returncode == -signal.SIGKILL,
+              f"faults resume: the child exited {child.returncode}, not by "
+              f"SIGKILL:\n{child.stdout[-3000:]}{child.stderr[-3000:]}")
+        done = {gid: g["step"] for gid, g in json.load(open(os.path.join(
+            killed_dir, "manifest.json")))["groups"].items()}
+        check(list(done.values()) == [2 * CHECKPOINT_EVERY] + [0] * (
+            len(done) - 1), f"faults resume: the killed run's manifest {done}")
+        resumed, rwall = counted("resume", lambda: rx.execute_cells_resumable(
+            rcells, checkpoint_dir=killed_dir, **resumable), 0,
+            n_resume - 2 * CHECKPOINT_EVERY)
+        replay, pwall = counted("replay", lambda: rx.execute_cells_resumable(
+            rcells, checkpoint_dir=killed_dir, **resumable), 0, 0)
+        for name in RESUME_CELLS:
+            check(same_cell(torch, resumed[name], whole[name])
+                  and same_cell(torch, replay[name], whole[name]),
+                  f"faults resume: the resumed {name} cell differs from the "
+                  f"uninterrupted run")
+    torch.backends.cudnn.deterministic = False
+    print(f"faults resume: a child process ran the study and was killed "
+          f"by SIGKILL after its 2nd checkpoint ({child_s:.1f} s, manifest "
+          f"steps {done}); resumed in {rwall:.2f} s wall "
+          f"({counts['resume'][k2]} K2 launches), bitwise the uninterrupted "
+          f"run; the finished directory replayed in {pwall:.2f} s with 0 "
+          f"launches, bitwise; the phase took "
+          f"{time.perf_counter() - phase_t0:.1f} s [{card}]")
     return counts
 
 
@@ -1051,13 +1336,8 @@ def lm_phase(torch, rt, fa_ops):
     return launches
 
 
-def main():
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's kernels need one",
-              file=sys.stderr)
-        return 1
+def load_port():
+    """Import the port from ``./src``."""
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch as rt
     import repro_torch.configs
@@ -1068,6 +1348,19 @@ def main():
     import repro_torch.models
     import repro_torch.optim
     import repro_torch.random
+    return rt
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels need one",
+              file=sys.stderr)
+        return 1
+    if sys.argv[1:2] == ["--resume-child"]:
+        return resume_child(sys.argv[2])
+    rt = load_port()
     from repro_torch.kernels import _build
     from repro_torch.kernels.aggregate import ops, ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1085,7 +1378,8 @@ def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     clock = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True, timeout=60)
@@ -1110,6 +1404,7 @@ def main():
     errs, timing = kernel_phase(torch, ops, ref, peaks)
     launches, fig1_data = fig1_phase(torch, rt)
     engine_counts = engine_phase(torch, rt, fig1_data)
+    fault_counts = faults_phase(torch, rt, fig1_data, card)
     del fig1_data
     k3_err, k3_timing = k3_phase(torch, fa_ops, fa_ref, peaks, sm_clock_hz)
     launches["gla_scan"], k4_err, k4_timing = k4_phase(
@@ -1138,9 +1433,11 @@ def main():
             "plain_warm_ms": t["plain_warm_ms"],
             "library_warm_ms": t["library_warm_ms"]})
         if key in ("k1", "k2"):
-            # The engine phase's runs, each counted from 0.
+            # The engine and faults phases' runs, each counted from 0.
             kernels[-1]["engine_launches"] = {
                 label: c[name] for label, c in engine_counts.items()}
+            kernels[-1]["faults_launches"] = {
+                label: c[name] for label, c in fault_counts.items()}
         if key == "k3":
             kernels[-1]["shapes"] = k3_timing
     # K4's main path is one scan at each of two shapes: its times and bound

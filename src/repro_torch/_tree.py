@@ -8,6 +8,11 @@ of the flat ``(P,)`` buffer (:func:`repro_torch.core.aggregation.
 ravel_spec`), so flat parameter and gradient buffers of the two packages
 can be compared element by element. ``torch.utils._pytree`` keeps dicts
 in insertion order, which is why the port does not use it here.
+
+:func:`tree_flatten_with_path` gives each leaf a readable path in the
+same order — a dict key, a NamedTuple field name or a sequence index a
+level — and :func:`key_str` joins one with ``/``, as the JAX package
+names checkpoint members (``carry/params``, ``carry/fault_state/0``).
 """
 
 from __future__ import annotations
@@ -19,24 +24,41 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def tree_flatten(tree) -> tuple[list, Any]:
-    """``tree`` → (leaves, treedef); ``treedef`` is hashable."""
+def tree_flatten_with_path(tree) -> tuple[list[tuple[tuple, Any]], Any]:
+    """``tree`` → ([(path, leaf), ...], treedef); ``treedef`` is
+    hashable and ``path`` is a tuple of dict keys, NamedTuple field
+    names and sequence indices."""
     leaves: list = []
 
-    def walk(node):
+    def walk(node, path):
         if node is None:
             return ("none",)
         if isinstance(node, dict):
             keys = tuple(sorted(node))
-            return ("dict", keys, tuple(walk(node[k]) for k in keys))
+            return ("dict", keys,
+                    tuple(walk(node[k], path + (k,)) for k in keys))
         if _is_namedtuple(node):
-            return ("namedtuple", type(node), tuple(walk(c) for c in node))
+            return ("namedtuple", type(node),
+                    tuple(walk(c, path + (f,))
+                          for f, c in zip(node._fields, node)))
         if isinstance(node, (tuple, list)):
-            return (type(node).__name__, tuple(walk(c) for c in node))
-        leaves.append(node)
+            return (type(node).__name__,
+                    tuple(walk(c, path + (i,)) for i, c in enumerate(node)))
+        leaves.append((path, node))
         return ("leaf",)
 
-    return leaves, walk(tree)
+    return leaves, walk(tree, ())
+
+
+def key_str(path) -> str:
+    """A leaf's path as ``a/b/0``."""
+    return "/".join(map(str, path))
+
+
+def tree_flatten(tree) -> tuple[list, Any]:
+    """``tree`` → (leaves, treedef); ``treedef`` is hashable."""
+    leaves, treedef = tree_flatten_with_path(tree)
+    return [leaf for _, leaf in leaves], treedef
 
 
 def tree_unflatten(treedef, leaves):

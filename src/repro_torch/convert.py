@@ -4,17 +4,22 @@
 leaves numpy arrays, or anything ``np.asarray`` reads) into the port's
 tree of tensors, same structure, same layouts. :func:`carry_from_jax`
 does the same for a flat ``SimCarry``: params, optimizer state,
-scheduler state, energy state, key and step counter. Neither imports
-JAX: state NamedTuples are matched to the port's by class name.
+scheduler state, energy state, key, step counter and fault state (``()``,
+a stale-update ring, or a tuple of them for a composite).
+:func:`fault_from_jax` turns a fault component into the port's. None
+imports JAX: state NamedTuples and fault families are matched to the
+port's by class name.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.core import energy, scheduling
+from repro_torch.core import energy, faults, scheduling
 from repro_torch.core.trainer import SimCarry
 from repro_torch.optim import optimizers
 
@@ -59,9 +64,28 @@ def params_from_jax(tree, device=None):
 
 
 def carry_from_jax(carry, device=None) -> SimCarry:
-    """A flat JAX ``SimCarry`` → the port's :class:`SimCarry`. Fault
-    state is not ported yet, so the carry must hold none."""
-    if tuple(carry.fault_state) != ():
-        raise NotImplementedError(
-            "fault state is not ported yet (ROADMAP Queue 1 item 9)")
+    """A flat JAX ``SimCarry`` → the port's :class:`SimCarry`."""
     return _convert(carry, resolve_device(device))
+
+
+_FAULTS = {cls.__name__: cls for cls in (
+    faults.DropUpdates, faults.CorruptGradients, faults.StaleUpdates,
+    faults.OfflineWindows)}
+
+
+def fault_from_jax(fault):
+    """A JAX fault component → the port's (tensors on the CPU, placed by
+    the simulator), so both packages can run the same component. None
+    stays None."""
+    if fault is None:
+        return None
+    name = type(fault).__name__
+    if name == "CompositeFault":
+        return faults.CompositeFault(tuple(map(fault_from_jax, fault.parts)))
+    try:
+        cls = _FAULTS[name]
+    except KeyError:
+        raise TypeError(f"no port counterpart for fault {name}") from None
+    kw = {f.name: getattr(fault, f.name) for f in dataclasses.fields(fault)}
+    return cls(**{k: v if k in cls.meta_fields else _tensor(v, "cpu")
+                  for k, v in kw.items()})

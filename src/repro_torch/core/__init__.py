@@ -4,6 +4,7 @@
 * :mod:`repro_torch.core.scheduling` — Algorithm 1 / 2 + benchmarks (§III, §V)
 * :mod:`repro_torch.core.aggregation` — unbiased scaled aggregation (eq. 11/12)
 * :mod:`repro_torch.core.convergence` — Theorem 1 / Corollary 1 constants
+* :mod:`repro_torch.core.faults` — client fault injection (delivery faults)
 * :mod:`repro_torch.core.trainer` — the ClientSimulator
 """
 
@@ -57,6 +58,17 @@ from repro_torch.core.convergence import (
     theorem1_bound,
     variance_constant,
 )
+from repro_torch.core.faults import (
+    CompositeFault,
+    CorruptGradients,
+    DropUpdates,
+    OfflineWindows,
+    StaleUpdates,
+    fault_family_names,
+    make_fault,
+    pad_faults,
+    register_fault_family,
+)
 from repro_torch.core.trainer import ClientSimulator, SimCarry, SimHistory
 
 __all__ = [
@@ -73,5 +85,8 @@ __all__ = [
     "ravel_spec", "ravel_stacked", "reduce_flat", "unravel_pytree",
     "QuadraticProblem", "biased_fixed_point", "error_floor", "make_quadratic",
     "max_step_size", "theorem1_bound", "variance_constant",
+    "CompositeFault", "CorruptGradients", "DropUpdates", "OfflineWindows",
+    "StaleUpdates", "fault_family_names", "make_fault", "pad_faults",
+    "register_fault_family",
     "ClientSimulator", "SimCarry", "SimHistory",
 ]

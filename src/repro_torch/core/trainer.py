@@ -16,11 +16,19 @@ scan; the port allocates each step's new parameter buffer instead (the
 buffer is 4·P bytes, small beside the (N, P) gradients), and leaves the
 input carry valid.
 
+Fault injection (``faults=``, :mod:`repro_torch.core.faults`) acts on
+the flat ``(N, P)`` gradient buffer before the reduction: the fault's
+delivery mask zero-weights the dropped rows and joins the active-row
+mask that K1 and K2 take as their ``mask``, so a dropped row is an
+exact zero even when its payload is NaN. The fault key is
+``fold_in(k_grad, FAULT_SALT)`` and the fault state's is
+``fold_in(k_run, FAULT_SALT)``, so a run without faults draws the bits
+it drew before, and ``faults=None`` adds no work to a step.
+
 Not ported yet: the legacy per-leaf carry (``flat=False``, and
-mixed-dtype parameters; ROADMAP Queue 1 item 7) and fault injection
-(``faults=``, item 9), both refused with ``NotImplementedError``;
-client-axis sharding (item 10); ``build_energy_train_step``, the SPMD
-path of the LM zoo (item 12).
+mixed-dtype parameters; ROADMAP Queue 1 step 5), refused with
+``NotImplementedError``; client-axis sharding (step 7);
+``build_energy_train_step``, the SPMD path of the LM zoo (step 8).
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from repro_torch import random as trandom
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_map
 from repro_torch.core import aggregation
+from repro_torch.core.faults import FAULT_SALT
 from repro_torch.optim import Optimizer, apply_updates
 
 
@@ -53,12 +62,6 @@ class SimHistory(NamedTuple):
     finite: torch.Tensor = None  # (T,) bool — params finite after the step
 
 
-def _no_faults(faults):
-    if faults is not None:
-        raise NotImplementedError(
-            "fault injection is not ported yet (ROADMAP Queue 1 item 9)")
-
-
 class ClientSimulator:
     """Paper-faithful N-client distributed-SGD simulator.
 
@@ -71,6 +74,8 @@ class ClientSimulator:
         the paper's semantics.
     scheduler, energy : :mod:`repro_torch.core.scheduling` /
         :mod:`repro_torch.core.energy` objects, here or per call.
+    faults : optional :mod:`repro_torch.core.faults` component, here or
+        per call (a per-call component replaces this one).
     loss_fn : optional (params) -> scalar global loss, logged per step.
     use_kernel : aggregate through the CUDA kernels K1/K2 (their plain
         versions for CPU tensors); default a torch matvec.
@@ -83,15 +88,15 @@ class ClientSimulator:
                  scheduler=None, energy=None, faults=None,
                  loss_fn=None, use_kernel: bool = False,
                  flat: bool | None = None, device=None):
-        _no_faults(faults)
         if flat is False:
             raise NotImplementedError(
                 "the legacy per-leaf carry (flat=False) is not ported; the "
-                "port runs the flat carry only (ROADMAP Queue 1 item 7)")
+                "port runs the flat carry only (ROADMAP Queue 1 step 5)")
         self.device = resolve_device(device)
         self.grads_fn = grads_fn
         self.scheduler = scheduler
         self.energy = energy
+        self.faults = faults
         self.p = self._f32(p)
         self.optimizer = optimizer
         self.loss_fn = loss_fn
@@ -103,17 +108,22 @@ class ClientSimulator:
             return None
         return torch.as_tensor(x, dtype=torch.float32).to(self.device)
 
-    def _components(self, scheduler, energy):
+    def _components(self, scheduler, energy, faults=None):
+        """(scheduler, energy, faults): each argument, else the
+        constructor's, the energy process and the fault component placed
+        on the simulator's device."""
         scheduler = self.scheduler if scheduler is None else scheduler
         energy = self.energy if energy is None else energy
+        faults = self.faults if faults is None else faults
         if scheduler is None or energy is None:
             raise ValueError(
                 "scheduler/energy must be given either at construction or "
                 "as arguments to init/step/run")
-        # Built-in processes keep their tables on the CPU until placed
-        # here; a custom process without ``to`` places itself.
-        to = getattr(energy, "to", None)
-        return scheduler, (energy if to is None else to(self.device))
+        # Built-in processes and faults keep their tables on the CPU
+        # until placed here; a custom one without ``to`` places itself.
+        energy, faults = (c if getattr(c, "to", None) is None
+                          else c.to(self.device) for c in (energy, faults))
+        return scheduler, energy, faults
 
     def flat_spec(self, params):
         """The :class:`~repro_torch.core.aggregation.RavelSpec` the
@@ -123,7 +133,7 @@ class ClientSimulator:
         except ValueError as e:
             raise NotImplementedError(
                 "mixed-dtype parameters need the legacy per-leaf carry, "
-                f"which is not ported (ROADMAP Queue 1 item 7; {e})") from None
+                f"which is not ported (ROADMAP Queue 1 step 5; {e})") from None
 
     def _flat_grads(self, spec):
         fn = self._gfn_cache.get(spec)
@@ -136,13 +146,18 @@ class ClientSimulator:
     def init(self, key, params, *, scheduler=None, energy=None,
              faults=None, spec=None) -> SimCarry:
         """Build the carry: params and optimizer state flat under ``spec``
-        (default: :meth:`flat_spec` of ``params``)."""
-        _no_faults(faults)
-        scheduler, energy = self._components(scheduler, energy)
+        (default: :meth:`flat_spec` of ``params``), and the fault
+        component's state."""
+        scheduler, energy, faults = self._components(scheduler, energy,
+                                                     faults)
         spec = self.flat_spec(params) if spec is None else spec
         params = aggregation.ravel_pytree(params, spec).to(self.device)
         key = key.to(self.device)
         k_sched, k_energy, k_run = trandom.split(key, 3).unbind(0)
+        fault_state = ()
+        if faults is not None:
+            fault_state = faults.init(trandom.fold_in(k_run, FAULT_SALT),
+                                      int(self.p.shape[0]), int(spec.total))
         return SimCarry(
             params=params,
             opt_state=self.optimizer.init(params),
@@ -150,22 +165,24 @@ class ClientSimulator:
             energy_state=energy.init(k_energy),
             key=k_run,
             t=torch.zeros((), dtype=torch.int32, device=self.device),
+            fault_state=fault_state,
         )
 
     def step(self, carry: SimCarry, scheduler=None, energy=None, *, spec,
              p=None, active_mask=None, faults=None) -> tuple[SimCarry, dict]:
         """One server round on a flat carry made under ``spec``."""
-        _no_faults(faults)
-        scheduler, energy = self._components(scheduler, energy)
+        scheduler, energy, faults = self._components(scheduler, energy,
+                                                     faults)
         return self._step(carry, scheduler, energy, spec, self._f32(p),
-                          self._f32(active_mask))
+                          self._f32(active_mask), faults)
 
     @torch.no_grad()
     def _step(self, carry: SimCarry, scheduler, energy, spec, p=None,
-              active_mask=None) -> tuple[SimCarry, dict]:
+              active_mask=None, faults=None) -> tuple[SimCarry, dict]:
         """The step body. ``p`` overrides the constructor weights and
         ``active_mask`` is the (N,) 0/1 existing-client mask (DESIGN.md
-        §7); both are f32 tensors on the simulator's device or None."""
+        §7); both are f32 tensors on the simulator's device or None.
+        ``faults`` is a placed fault component or None."""
         p = self.p if p is None else p
         key, k_arr, k_sched, k_grad = trandom.split(carry.key, 4).unbind(0)
         energy_state, arr = energy.arrivals(carry.energy_state, carry.t, k_arr)
@@ -178,16 +195,27 @@ class ClientSimulator:
             weights = weights * active_mask
         params_tree = aggregation.unravel_pytree(carry.params, spec)
         g = self._flat_grads(spec)(params_tree, k_grad, carry.t)
+        fault_state, row_mask = carry.fault_state, active_mask
+        if faults is not None:
+            # The delivery mask joins the active-row select, so a dropped
+            # row is an exact zero through K1/K2 even when its payload is
+            # NaN, and zero weights keep weight_sum the delivered mass.
+            k_fault = trandom.fold_in(k_grad, FAULT_SALT)
+            fault_state, g, keep = faults.apply(carry.fault_state, carry.t,
+                                                k_fault, g)
+            if keep is not None:
+                weights = weights * keep
+                row_mask = aggregation.compose_masks(active_mask, keep)
         if self.use_kernel and getattr(self.optimizer, "kind", "") == "sgd":
             # One launch of K2: the same f32 op sequence as
             # reduce → −η·agg → add.
             params, opt_state, _ = aggregation.fused_flat_sgd_update(
                 g, weights, carry.params, carry.opt_state, self.optimizer,
-                mask=active_mask, use_kernel=True)
+                mask=row_mask, use_kernel=True)
         else:
             agg = aggregation.reduce_flat(g, weights,
                                           use_kernel=self.use_kernel,
-                                          mask=active_mask)
+                                          mask=row_mask)
             updates, opt_state = self.optimizer.update(
                 agg, carry.opt_state, carry.params)
             params = apply_updates(carry.params, updates)
@@ -202,15 +230,15 @@ class ClientSimulator:
         }
         new_carry = SimCarry(params=params, opt_state=opt_state,
                              sched_state=sched_state, energy_state=energy_state,
-                             key=key, t=carry.t + 1)
+                             key=key, t=carry.t + 1, fault_state=fault_state)
         return new_carry, out
 
     def _steps(self, carry, num_steps, scheduler, energy, spec, p,
-               active_mask):
+               active_mask, faults):
         outs = []
         for _ in range(num_steps):
             carry, out = self._step(carry, scheduler, energy, spec, p,
-                                    active_mask)
+                                    active_mask, faults)
             outs.append(out)
         return carry, outs
 
@@ -236,15 +264,15 @@ class ClientSimulator:
         ``num_steps // eval_every``. ``final_params`` has the structure
         of ``params``.
         """
-        _no_faults(faults)
-        scheduler, energy = self._components(scheduler, energy)
+        scheduler, energy, faults = self._components(scheduler, energy,
+                                                     faults)
         spec = self.flat_spec(params)
         carry = self.init(key, params, scheduler=scheduler, energy=energy,
-                          spec=spec)
+                          faults=faults, spec=spec)
         p, active_mask = self._f32(p), self._f32(active_mask)
         if eval_fn is None:
             carry, outs = self._steps(carry, num_steps, scheduler, energy,
-                                      spec, p, active_mask)
+                                      spec, p, active_mask, faults)
             return (aggregation.unravel_pytree(carry.params, spec),
                     self._history(outs))
         if eval_every <= 0:
@@ -255,7 +283,7 @@ class ClientSimulator:
         outs, evals = [], []
         for _ in range(num_steps // eval_every):
             carry, chunk = self._steps(carry, eval_every, scheduler, energy,
-                                       spec, p, active_mask)
+                                       spec, p, active_mask, faults)
             outs += chunk
             with torch.no_grad():
                 evals.append(eval_fn(aggregation.unravel_pytree(carry.params,
@@ -272,8 +300,9 @@ class ClientSimulator:
         ``num_steps`` rounds. ``spec`` is the :meth:`flat_spec` of the
         original params. The whole step stream is a function of the
         carry, so a resumed run equals the uninterrupted one."""
-        _no_faults(faults)
-        scheduler, energy = self._components(scheduler, energy)
+        scheduler, energy, faults = self._components(scheduler, energy,
+                                                     faults)
         carry, outs = self._steps(carry, num_steps, scheduler, energy, spec,
-                                  self._f32(p), self._f32(active_mask))
+                                  self._f32(p), self._f32(active_mask),
+                                  faults)
         return carry, self._history(outs)

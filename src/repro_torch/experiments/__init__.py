@@ -19,11 +19,12 @@ Port of ``repro.experiments`` on one device:
 * :mod:`repro_torch.experiments.engine` — :func:`execute_cells`, the
   single execution core: cells grouped by component structure, ragged
   populations padded per group, each group's cells and seeds run in
-  turn through :class:`repro_torch.core.ClientSimulator`.
+  turn through :class:`repro_torch.core.ClientSimulator`; and
+  :func:`execute_cells_resumable`, its preemption-safe form
+  (checkpointed chunks, bitwise resume, :func:`study_fingerprint`).
 
-Not ported yet: placement across cards (ROADMAP Queue 1 step 7), the
-resumable path (step 3), fault injection (step 2) and manifests with
-the executable cache (step 4).
+Not ported yet: placement across cards (ROADMAP Queue 1 step 7), and
+manifests with the executable cache (step 4).
 """
 
 from repro_torch.experiments.axes import (
@@ -36,6 +37,7 @@ from repro_torch.experiments.axes import (
     resolve_taus_profile,
 )
 from repro_torch.experiments.engine import (
+    MANIFEST_FORMAT,
     CellResult,
     DowngradeRecord,
     StructureGroup,
@@ -43,12 +45,14 @@ from repro_torch.experiments.engine import (
     clear_cache,
     divergence_summary,
     execute_cells,
+    execute_cells_resumable,
     grid_summary,
     last_downgrades,
     population_mask,
     resolve_structure_groups,
     run_grid,
     run_grid_sequential,
+    study_fingerprint,
     subpopulation_p,
 )
 from repro_torch.experiments.results import GridResult, default_metric, seed_stats
@@ -75,16 +79,18 @@ from repro_torch.experiments.study import (
 )
 
 __all__ = [
-    "ARRIVAL_KINDS", "AXIS_ORDER", "FIG1_SCHEDULERS", "PAPER_TAUS",
-    "SIM_CACHE_SIZE",
+    "ARRIVAL_KINDS", "AXIS_ORDER", "FIG1_SCHEDULERS", "MANIFEST_FORMAT",
+    "PAPER_TAUS", "SIM_CACHE_SIZE",
     "AxisSpec", "CellResult", "DowngradeRecord", "ExecutionConfig",
     "GridResult", "Scenario", "StructureGroup", "Study",
     "axis_names", "build_components", "check_unique_names", "clear_cache",
     "default_metric", "default_taus", "divergence_summary", "execute_cells",
+    "execute_cells_resumable",
     "get_axis", "get_grid", "get_study", "grid_names", "grid_summary",
     "last_downgrades", "make_energy_process", "population_mask",
     "register_axis", "register_grid", "register_study",
     "register_taus_profile", "resolve_structure_groups",
     "resolve_taus_profile", "run_grid", "run_grid_sequential",
-    "scenario_grid", "seed_stats", "study_names", "subpopulation_p",
+    "scenario_grid", "seed_stats", "study_fingerprint", "study_names",
+    "subpopulation_p",
 ]

@@ -21,9 +21,9 @@ Built-in axes (canonical resolution order):
                   pad to the simulator capacity under an active mask
                   (DESIGN.md §7), sharing one structure group
     taus_profile  named / explicit per-client energy-period profile
-    faults        registered, but a fault family is refused until
-                  core/faults.py is ported (ROADMAP Queue 1 step 2);
-                  None, the fault-free program, passes
+    faults        fault-family names from repro_torch.core.faults
+                  (str, or (kind, kwargs)); None, the fault-free
+                  program, is the default
     seeds         seed count or explicit list (run in turn by the
                   engine, never part of cell naming)
 
@@ -42,7 +42,6 @@ from typing import Any, Callable, Sequence
 import numpy as np
 
 from repro_torch.core.energy import default_taus
-from repro_torch.experiments.scenario import refuse_faults
 
 #: Canonical order in which axes cross-multiply and appear in cell names.
 AXIS_ORDER = ("scheduler", "arrivals", "capacity", "n_clients",
@@ -183,7 +182,13 @@ def _validate_arrivals(value) -> None:
 def _validate_faults(value) -> None:
     if value is None:  # the fault-free program
         return
-    refuse_faults(f"faults axis value {value!r}")
+    from repro_torch.core.faults import fault_family_names
+
+    kind = _family_kind(value)
+    if kind not in fault_family_names():
+        raise ValueError(
+            f"unknown fault family {kind!r}; fault-family registry has "
+            f"{fault_family_names()}")
 
 
 def _validate_taus_profile(value) -> None:
@@ -270,8 +275,14 @@ register_axis(
 
 
 def _apply_faults(draft: dict, value) -> None:
-    _validate_faults(value)
-    draft["faults"] = None
+    if value is None:
+        draft["faults"] = None
+    elif isinstance(value, tuple):
+        kind, kw = value
+        draft["faults"] = str(kind)
+        draft["fault_kwargs"] = dict(kw)
+    else:
+        draft["faults"] = str(value)
 
 
 def _fmt_faults(value, fixed: bool) -> str | None:
@@ -288,7 +299,7 @@ register_axis(
     "faults", apply=_apply_faults, fmt=_fmt_faults,
     is_value=_faults_is_value, validate=_validate_faults,
     doc="fault-family name, (kind, kwargs), or None for the fault-free "
-        "program; only None is ported (ROADMAP Queue 1 step 2)")
+        "program (repro_torch.core.faults)")
 register_axis(
     "seeds", apply=lambda draft, value: None,
     doc="seed count or explicit list; run in turn by the engine")

@@ -31,17 +31,27 @@ Results stay on the simulator's device; :func:`_attach_divergence` and
 :func:`divergence_summary` copy the per-step finite flags and the
 quarantine record to the host explicitly.
 
+A scenario's fault component (:mod:`repro_torch.core.faults`) is part
+of its structure and is padded with the rest. **Preemption-safe
+execution** (:func:`execute_cells_resumable`) advances each group in
+chunks through :meth:`ClientSimulator.run_carry` and checkpoints the
+group's carries and history after every chunk, stacked into ``(S, R,
+…)`` arrays, the layout the JAX package writes; a run killed at any
+point resumes from its directory bit for bit.
+
 Not ported yet, and refused with ``NotImplementedError``: ``mesh`` and
-device placement (ROADMAP Queue 1 step 7), the resumable checkpointed
-path (step 3), fault injection (step 2) and ``executable_cache`` (step
-4). A batched cell step (the cells of a group in one step) is a later
-speed-up, to be judged on a benchmark (ROADMAP Queue 1).
+device placement (ROADMAP Queue 1 step 7), ``executable_cache`` (step
+4), and reading a checkpoint directory the JAX package wrote (step 4).
+A batched cell step (the cells of a group in one step) is a speed-up to
+be judged on a benchmark (ROADMAP, Housekeeping).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
+import os
 from typing import Any, NamedTuple, Sequence
 
 import numpy as np
@@ -49,12 +59,17 @@ import torch
 
 from repro_torch import random as trandom
 from repro_torch._device import resolve_device
-from repro_torch._tree import tree_map
+from repro_torch._tree import tree_leaves, tree_map
+from repro_torch.checkpoint import (CheckpointManager, latest_step,
+                                    write_json_atomic)
+from repro_torch.core import aggregation
 from repro_torch.core.energy import pad_arrivals
+from repro_torch.core.faults import pad_faults
 from repro_torch.core.scheduling import pad_scheduler
 from repro_torch.core.trainer import ClientSimulator, SimHistory
 from repro_torch.experiments.results import host
 from repro_torch.experiments.scenario import Scenario, refuse
+
 
 class CellResult(NamedTuple):
     """Per-scenario result; every leaf carries a leading seed axis R.
@@ -79,10 +94,13 @@ def _signature(component):
     """Hashable structure of one component object (None → None).
 
     Per dataclass field: a tensor gives its shape and dtype; static
-    metadata (``n_clients``, a bool such as ``scaled``, a string) its
-    value; any other Python number its type, since the JAX package
-    holds such hyperparameters (a battery's ``capacity``, ``ema``,
-    ``warmup``) as scalar leaves that may differ within a group.
+    metadata (``n_clients``, a field the class lists in
+    ``meta_fields`` such as a stale fault's ``delay``, a bool such as
+    ``scaled``, a string) its value; a tuple of components (a composite
+    fault's ``parts``) each part's signature; any other Python number
+    its type, since the JAX package holds such hyperparameters (a
+    battery's ``capacity``, ``ema``, ``warmup``) as scalar leaves that
+    may differ within a group.
     """
     if component is None:
         return None
@@ -91,12 +109,15 @@ def _signature(component):
                  for f in dataclasses.fields(component)]
     else:
         items = sorted(vars(component).items())
+    meta = ("n_clients",) + tuple(getattr(component, "meta_fields", ()))
     sig = []
     for name, v in items:
         if isinstance(v, torch.Tensor):
             sig.append((name, tuple(v.shape), str(v.dtype)))
-        elif name == "n_clients" or v is None or isinstance(v, (bool, str)):
+        elif name in meta or v is None or isinstance(v, (bool, str)):
             sig.append((name, v))
+        elif isinstance(v, tuple):
+            sig.append((name, tuple(map(_signature, v))))
         else:
             sig.append((name, type(v).__name__))
     return type(component), tuple(sig)
@@ -143,9 +164,10 @@ def subpopulation_p(p, n_clients: int, n_total: int | None = None) -> torch.Tens
 
 def _pad_built(built, n_cap: int):
     """(scheduler, energy, faults) built at natural n → padded to n_cap
-    rows (``faults`` is None: fault injection is not ported)."""
+    rows (``faults`` may be None)."""
     scheduler, energy, faults = built
-    return pad_scheduler(scheduler, n_cap), pad_arrivals(energy, n_cap), faults
+    return (pad_scheduler(scheduler, n_cap), pad_arrivals(energy, n_cap),
+            pad_faults(faults, n_cap))
 
 
 def _cell_mask_p(sc: Scenario, sim: ClientSimulator, n_cap: int):
@@ -167,7 +189,7 @@ class StructureGroup(NamedTuple):
     ``key`` is the :func:`_group_key` signature; ``members`` index into
     the caller's scenario list; ``scheduler`` / ``energy`` / ``faults``
     are per-member lists of the padded components (``faults`` entries
-    are None); ``active`` / ``p`` are per-member lists of (N_cap,)
+    are None for fault-free cells); ``active`` / ``p`` are per-member lists of (N_cap,)
     ragged operands on the simulator's device, both None when the group
     is uniformly at capacity. The engine runs the members in turn.
     """
@@ -351,11 +373,11 @@ def last_downgrades() -> tuple[DowngradeRecord, ...]:
     return tuple(_LAST_DOWNGRADES)
 
 
-def _run_cell(sim, key, params0, num_steps, scheduler, energy, p, active,
-              eval_fn, eval_every) -> CellResult:
+def _run_cell(sim, key, params0, num_steps, scheduler, energy, faults, p,
+              active, eval_fn, eval_every) -> CellResult:
     out = sim.run(key, params0, num_steps, scheduler=scheduler,
-                  energy=energy, p=p, active_mask=active, eval_fn=eval_fn,
-                  eval_every=eval_every)
+                  energy=energy, faults=faults, p=p, active_mask=active,
+                  eval_fn=eval_fn, eval_every=eval_every)
     return CellResult(*out) if eval_fn is not None else CellResult(*out, None)
 
 
@@ -420,14 +442,15 @@ def execute_cells(
         results = {}
         for sc in scenarios:
             scheduler, energy = sc.build()
-            sc.build_faults()
+            faults = sc.build_faults()
             active, p_cell = None, None
             if sc.n_clients != n_cap:
-                scheduler, energy, _ = _pad_built(
-                    (scheduler, energy, None), n_cap)
+                scheduler, energy, faults = _pad_built(
+                    (scheduler, energy, faults), n_cap)
                 active, p_cell = _cell_mask_p(sc, sim, n_cap)
             per_seed = [_run_cell(sim, key, params0, num_steps, scheduler,
-                                  energy, p_cell, active, eval_fn, eval_every)
+                                  energy, faults, p_cell, active, eval_fn,
+                                  eval_every)
                         for key in keys]
             results[sc.name] = _finish(per_seed, sc.n_clients, n_cap)
         return results
@@ -439,8 +462,9 @@ def execute_cells(
             active = grp.active[j] if grp.ragged else None
             p_cell = grp.p[j] if grp.ragged else None
             per_seed = [_run_cell(sim, key, params0, num_steps,
-                                  grp.scheduler[j], grp.energy[j], p_cell,
-                                  active, eval_fn, eval_every)
+                                  grp.scheduler[j], grp.energy[j],
+                                  grp.faults[j], p_cell, active, eval_fn,
+                                  eval_every)
                         for key in keys]
             results[idx] = _finish(per_seed, scenarios[idx].n_clients, n_cap)
     return dict(zip(names, results))
@@ -509,6 +533,268 @@ def run_grid_sequential(
     return execute_cells(scenarios, sim=sim, params0=params0,
                          num_steps=num_steps, seeds=seeds, eval_fn=eval_fn,
                          eval_every=eval_every, sequential=True)
+
+
+# --------------------------------------------- preemption-safe execution
+
+#: Manifest schema tag — bump on incompatible layout changes.
+MANIFEST_FORMAT = "study-manifest/v1"
+
+
+def _leaf_bytes(leaf) -> tuple[str, bytes]:
+    """(str((shape, dtype name)), raw bytes) of one ``params0`` leaf, as
+    the JAX package reads them from a numpy array: a bf16 tensor as its
+    16-bit patterns under the name ``bfloat16``."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu().contiguous()
+        name = str(t.dtype).removeprefix("torch.")
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        arr = t.numpy()
+    else:
+        arr = np.asarray(leaf)
+        name = arr.dtype.name
+    return str((arr.shape, name)), np.ascontiguousarray(arr).tobytes()
+
+
+def study_fingerprint(scenarios, num_steps, seed_list, params0) -> str:
+    """Content hash binding a checkpoint directory to one exact study:
+    canonical scenario specs + horizon + seeds + initial-parameter bytes,
+    hashed as the JAX package hashes them, so the same study gives the
+    same hex digest in both packages. Resume refuses a directory whose
+    manifest fingerprint differs."""
+    h = hashlib.sha256()
+    for sc in scenarios:
+        d = dataclasses.asdict(sc)
+        if d.get("taus") is not None:
+            d["taus"] = np.asarray(d["taus"]).tolist()
+        h.update(json.dumps(d, sort_keys=True, default=repr).encode())
+    h.update(json.dumps({"num_steps": int(num_steps),
+                         "seeds": [int(s) for s in seed_list]}).encode())
+    for leaf in tree_leaves(params0):
+        meta, raw = _leaf_bytes(leaf)
+        h.update(meta.encode())
+        h.update(raw)
+    return h.hexdigest()
+
+
+def _history_template(n_scen, n_seeds, t, n_cap):
+    """Shape/dtype template (numpy) of an (S, R, t) SimHistory chunk as
+    saved in resumable checkpoints."""
+    return SimHistory(
+        loss=np.zeros((n_scen, n_seeds, t), np.float32),
+        participation=np.zeros((n_scen, n_seeds, t, n_cap), np.float32),
+        weight_sum=np.zeros((n_scen, n_seeds, t), np.float32),
+        finite=np.zeros((n_scen, n_seeds, t), np.bool_))
+
+
+def _pad_halted_history(history, num_steps: int):
+    """Extend a halted group's (numpy) history to the full horizon: NaN
+    metrics, ``finite=False`` — the quarantine tail (DESIGN.md §10)."""
+    done = int(history.loss.shape[2])
+    pad = num_steps - done
+    if pad <= 0:
+        return history
+
+    def ext(x, value):
+        shape = x.shape[:2] + (pad,) + x.shape[3:]
+        return np.concatenate([x, np.full(shape, value, x.dtype)], axis=2)
+
+    return SimHistory(loss=ext(history.loss, np.nan),
+                      participation=ext(history.participation, np.nan),
+                      weight_sum=ext(history.weight_sum, np.nan),
+                      finite=ext(history.finite, False))
+
+
+def _stack2(trees):
+    """A list (scenarios) of lists (seeds) of same-structure trees → one
+    tree of (S, R, …) leaves."""
+    return tree_map(lambda *xs: torch.stack(xs),
+                    *[tree_map(lambda *ys: torch.stack(ys), *row)
+                      for row in trees])
+
+
+def _advance_resumable_group(
+    grp: StructureGroup, *, gid: str, sim: ClientSimulator, spec, params0,
+    keys, num_steps: int, checkpoint_every: int, checkpoint_dir: str,
+    keep: int, manifest: dict, manifest_path: str, halt_on_divergence: bool,
+    progress=None,
+) -> list[CellResult]:
+    """Advance ONE structure group to the horizon, checkpointed.
+
+    Restore the group's newest complete checkpoint (or init fresh),
+    advance each member cell and seed in turn ``checkpoint_every`` steps
+    at a time through :meth:`ClientSimulator.run_carry`, and after every
+    chunk write ``{carry, history}`` — the group's carries and history
+    stacked into (S, R, …) arrays — plus the study manifest.
+    ``progress(gid, step, num_steps)`` fires once after restore/init and
+    once per completed chunk. Returns one uncropped
+    :class:`CellResult` per member.
+    """
+    n_cap = int(sim.p.shape[0])
+    n_scen, n_seeds = len(grp.members), len(keys)
+    mgr = CheckpointManager(os.path.join(checkpoint_dir, gid), keep=keep)
+    # Fresh carries: the start of a new group, and the restore template.
+    carries = [[sim.init(key, params0, scheduler=grp.scheduler[j],
+                         energy=grp.energy[j], faults=grp.faults[j],
+                         spec=spec)
+                for key in keys] for j in range(n_scen)]
+    step = latest_step(mgr.directory)
+    halted = manifest["groups"][gid]["halted"]
+    history = None
+    if step is None:
+        step, halted = 0, False
+    else:
+        tpl = {"carry": _stack2(carries),
+               "history": _history_template(n_scen, n_seeds, step, n_cap)}
+        state, step = mgr.restore(tpl, step)
+        history = state["history"]
+        carries = [[tree_map(lambda x: x[j, r], state["carry"])
+                    for r in range(n_seeds)] for j in range(n_scen)]
+    if progress is not None:
+        progress(gid, step, num_steps)
+
+    while step < num_steps and not halted:
+        chunk = min(checkpoint_every, num_steps - step)
+        hists = []
+        for j in range(n_scen):
+            row = []
+            for r in range(n_seeds):
+                carries[j][r], hist = sim.run_carry(
+                    carries[j][r], chunk, scheduler=grp.scheduler[j],
+                    energy=grp.energy[j], faults=grp.faults[j],
+                    p=grp.p[j] if grp.ragged else None,
+                    active_mask=grp.active[j] if grp.ragged else None,
+                    spec=spec)
+                row.append(hist)
+            hists.append(row)
+        hist = SimHistory(*map(host, _stack2(hists)))
+        history = hist if history is None else SimHistory(*(
+            np.concatenate([a, b], axis=2) for a, b in zip(history, hist)))
+        step += chunk
+        if halt_on_divergence and not history.finite[..., -1].any():
+            halted = True
+        mgr.save(step, {"carry": _stack2(carries), "history": history})
+        manifest["groups"][gid]["step"] = step
+        manifest["groups"][gid]["halted"] = bool(halted)
+        write_json_atomic(manifest_path, manifest)
+        if progress is not None:
+            progress(gid, step, num_steps)
+
+    if history is None:  # num_steps == 0 degenerate study
+        history = _history_template(n_scen, n_seeds, 0, n_cap)
+    if halted:
+        history = _pad_halted_history(history, num_steps)
+    cells = []
+    for j in range(n_scen):
+        params = tree_map(lambda *xs: torch.stack(xs), *[
+            aggregation.unravel_pytree(c.params, spec) for c in carries[j]])
+        cells.append(CellResult(
+            params=params, history=SimHistory(*(
+                torch.from_numpy(np.ascontiguousarray(x[j])).to(sim.device)
+                for x in history)), evals=None))
+    return cells
+
+
+def execute_cells_resumable(
+    scenarios: Sequence[Scenario],
+    *,
+    sim: ClientSimulator,
+    params0,
+    num_steps: int,
+    seeds: int | Sequence[int] = 8,
+    checkpoint_dir: str,
+    checkpoint_every: int = 0,
+    keep: int = 3,
+    halt_on_divergence: bool = False,
+    executable_cache=None,
+    progress=None,
+) -> dict[str, CellResult]:
+    """Preemption-safe :func:`execute_cells`: chunked runs + checkpoints.
+
+    Execution proceeds structure group by structure group (the grouping
+    of :func:`execute_cells`, :func:`resolve_structure_groups`), each
+    group advancing in ``checkpoint_every``-step chunks (0: one chunk);
+    after every chunk the group's ``{carry, history}`` tree is written
+    atomically under ``checkpoint_dir/<gid>/step_<t>.npz`` and the study
+    manifest (``manifest.json``) is rewritten. Because each chunk is a
+    function of the carry alone, a run killed at *any* point — including
+    mid-write, by ``kill -9`` — resumes from the directory with results
+    **bitwise identical** to the uninterrupted run and to
+    :func:`execute_cells`: finished groups restore their final
+    checkpoint without re-running, the group in flight restores its
+    newest complete checkpoint and runs only the tail.
+
+    The manifest binds the directory to one exact study via
+    :func:`study_fingerprint`; resuming with anything changed raises.
+    Layout, the JAX package's::
+
+        {"format": "study-manifest/v1", "fingerprint": "<sha256>",
+         "num_steps": T, "checkpoint_every": K,
+         "groups": {"g000": {"members": [...], "step": t,
+                             "halted": false}, ...}}
+
+    ``halt_on_divergence=True`` stops advancing a group once **every**
+    (scenario, seed) run has gone non-finite (divergence is absorbing);
+    the unrun tail is reported as NaN metrics with ``finite=False``.
+    Eval hooks are not taken on this path. ``executable_cache`` is
+    refused (ROADMAP Queue 1 step 4). ``progress(gid, step, num_steps)``
+    reports per-chunk advancement.
+    """
+    if executable_cache is not None:
+        refuse("executable_cache=", 4, "serve/cache.py")
+    scenarios = list(scenarios)
+    del _LAST_DOWNGRADES[:]  # no ladder here, but keep the report current
+    seed_list, keys = _seed_keys(seeds, sim.device)
+    num_steps = int(num_steps)
+    if checkpoint_every <= 0:
+        checkpoint_every = num_steps
+
+    names, n_cap, groups = resolve_structure_groups(scenarios, sim=sim)
+    spec = sim.flat_spec(params0)
+    gids = [f"g{g:03d}" for g in range(len(groups))]
+
+    manifest_path = os.path.join(checkpoint_dir, "manifest.json")
+    fingerprint = study_fingerprint(scenarios, num_steps, seed_list, params0)
+    manifest = {
+        "format": MANIFEST_FORMAT,
+        "fingerprint": fingerprint,
+        "num_steps": num_steps,
+        "checkpoint_every": int(checkpoint_every),
+        "groups": {gid: {"members": [names[i] for i in grp.members],
+                         "step": 0, "halted": False}
+                   for gid, grp in zip(gids, groups)},
+    }
+    if os.path.exists(manifest_path):
+        with open(manifest_path) as f:
+            prev = json.load(f)
+        if prev.get("format") != MANIFEST_FORMAT:
+            raise ValueError(
+                f"{manifest_path}: unknown manifest format "
+                f"{prev.get('format')!r} (want {MANIFEST_FORMAT})")
+        if prev.get("fingerprint") != fingerprint:
+            raise ValueError(
+                f"{manifest_path} belongs to a different study "
+                f"(fingerprint mismatch) — refusing to resume; use a "
+                f"fresh checkpoint_dir or delete the stale one")
+        for gid in gids:
+            got = prev["groups"].get(gid, {})
+            manifest["groups"][gid]["halted"] = bool(got.get("halted", False))
+    else:
+        write_json_atomic(manifest_path, manifest)
+
+    results: list[CellResult | None] = [None] * len(scenarios)
+    for gid, grp in zip(gids, groups):
+        cells = _advance_resumable_group(
+            grp, gid=gid, sim=sim, spec=spec, params0=params0, keys=keys,
+            num_steps=num_steps, checkpoint_every=checkpoint_every,
+            checkpoint_dir=checkpoint_dir, keep=keep, manifest=manifest,
+            manifest_path=manifest_path,
+            halt_on_divergence=halt_on_divergence, progress=progress)
+        for idx, cell in zip(grp.members, cells):
+            cell = _crop_cell(cell, scenarios[idx].n_clients, n_cap)
+            results[idx] = _attach_divergence(cell)
+    return dict(zip(names, results))
 
 
 def grid_summary(results: dict[str, CellResult], reducer=None) -> dict[str, dict]:

@@ -2,9 +2,11 @@
 
 Port of ``repro.experiments.scenario``. A :class:`Scenario` names a
 (scheduler × energy-process) pair plus the shape of the client
-population; :meth:`Scenario.build` materializes the two component
-objects of :mod:`repro_torch.core.scheduling` and
-:mod:`repro_torch.core.energy`. Scenarios are host-side specs (plain
+population and an optional fault family; :meth:`Scenario.build`
+materializes the two component objects of
+:mod:`repro_torch.core.scheduling` and :mod:`repro_torch.core.energy`,
+:meth:`Scenario.build_faults` the :mod:`repro_torch.core.faults`
+component. Scenarios are host-side specs (plain
 dataclasses); the engine places what they build on the simulator's
 device.
 
@@ -13,9 +15,6 @@ produces from its sweep axes; writing them by hand remains supported
 for one-off irregular cells. The module also keeps the JAX package's
 two legacy shims, :func:`make_energy_process` and the named-grid
 registry (:func:`get_grid` / :func:`register_grid`).
-
-Fault injection (``faults=``) is not ported yet: :meth:`Scenario.
-build_faults` refuses a named fault family (ROADMAP Queue 1 step 2).
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ import dataclasses
 from typing import Callable, Iterable, Sequence
 
 from repro_torch.core.energy import PAPER_TAUS, default_taus, make_arrivals
+from repro_torch.core.faults import make_fault
 from repro_torch.core.scheduling import make_scheduler
 
 __all__ = ["ARRIVAL_KINDS", "FIG1_SCHEDULERS", "PAPER_TAUS", "Scenario",
@@ -46,11 +46,6 @@ def refuse(what: str, step: int, item: str):
         f"{what} is not ported yet (ROADMAP Queue 1 step {step}, {item})")
 
 
-def refuse_faults(what: str):
-    """Raise for fault injection (ROADMAP Queue 1 step 2)."""
-    refuse(f"{what}: fault injection", 2, "core/faults.py")
-
-
 @dataclasses.dataclass
 class Scenario:
     """One experiment-grid cell: scheduler × arrival process × population.
@@ -65,8 +60,9 @@ class Scenario:
     pads ragged populations to the simulator capacity under an active
     mask (DESIGN.md §7).
 
-    ``faults`` names a fault-injection family; only ``None``, the
-    fault-free program, is ported.
+    ``faults`` optionally names a fault-injection family
+    (:mod:`repro_torch.core.faults` registry; ``fault_kwargs`` feeds its
+    factory). ``None`` — the default — runs the fault-free program.
     """
 
     name: str
@@ -90,10 +86,10 @@ class Scenario:
         return scheduler, energy
 
     def build_faults(self):
-        """None for the fault-free program; a fault family raises."""
+        """Materialize the fault component (None when fault-free)."""
         if self.faults is None:
             return None
-        refuse_faults(f"scenario {self.name!r} names faults={self.faults!r}")
+        return make_fault(self.faults, self.n_clients, **self.fault_kwargs)
 
 
 def scenario_grid(

@@ -18,7 +18,11 @@ device in a bounded LRU) and dispatches to the single execution core
 (:func:`repro_torch.experiments.engine.execute_cells`), which runs each
 structure group's cells in turn on the simulator's device: the card
 unless ``device=`` says otherwise (``ExecutionConfig.sequential`` pads
-per cell instead).
+per cell instead). ``ExecutionConfig.checkpoint_dir`` routes the study
+through the preemption-safe
+:func:`~repro_torch.experiments.engine.execute_cells_resumable`
+instead: checkpointed chunks, and a killed run resumes from its
+directory bit for bit.
 
 Named studies (``fig1``, ``fig1_grid``, ``capacity_sweep``,
 ``day_night``, ``population_scaling``) live in a registry
@@ -26,9 +30,9 @@ Named studies (``fig1``, ``fig1_grid``, ``capacity_sweep``,
 grid registry — :func:`repro_torch.experiments.get_grid` resolves
 through it.
 
-Not ported yet: ``ExecutionConfig.mesh`` (ROADMAP Queue 1 step 7),
-``checkpoint_dir`` and the resumable path (step 3), and the
-manifest/JSON round trip (step 4); each raises ``NotImplementedError``.
+Not ported yet: ``ExecutionConfig.mesh`` (ROADMAP Queue 1 step 7) and
+the manifest/JSON round trip (step 4); each raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -71,10 +75,16 @@ class ExecutionConfig:
         JAX package's per-cell baseline, kept for cross-checks.
     client_reduction, degrade : cross-shard aggregation and the
         graceful-degradation ladder; they act only on a mesh.
-    checkpoint_dir : preemption-safe chunked execution; not ported
-        (ROADMAP Queue 1 step 3), so anything but None is refused. The
-        ``checkpoint_every`` / ``checkpoint_keep`` /
-        ``halt_on_divergence`` options act only with it.
+    checkpoint_dir : directory for preemption-safe execution
+        (:func:`~repro_torch.experiments.engine.execute_cells_resumable`):
+        the study runs in checkpointed chunks and a killed run resumes
+        from here bit for bit. Incompatible with ``mesh`` /
+        ``sequential`` / ``eval_fn``.
+    checkpoint_every : chunk length between checkpoints (0 → one chunk,
+        i.e. checkpoint only at the end).
+    checkpoint_keep : retained checkpoints per structure group.
+    halt_on_divergence : stop advancing a structure group once every one
+        of its runs has gone non-finite (checkpointed path only).
     """
 
     mesh: Any = None
@@ -268,9 +278,6 @@ class Study:
         ``config``.
         """
         cfg = config or ExecutionConfig()
-        if cfg.checkpoint_dir is not None:
-            refuse("ExecutionConfig.checkpoint_dir (resumable execution)",
-                   3, "execute_cells_resumable")
         if sim is None:
             if grads_fn is None or p is None or optimizer is None:
                 raise ValueError(
@@ -280,12 +287,28 @@ class Study:
                                  loss_fn=loss_fn, use_kernel=use_kernel,
                                  device=device)
         cells = self._resolve_labeled()
-        results = engine.execute_cells(
-            [sc for sc, _ in cells], sim=sim, params0=params0,
-            num_steps=self.num_steps, seeds=self.seeds(),
-            eval_fn=cfg.eval_fn, eval_every=cfg.eval_every,
-            mesh=cfg.mesh, sequential=cfg.sequential,
-            client_reduction=cfg.client_reduction, degrade=cfg.degrade)
+        if cfg.checkpoint_dir is not None:
+            conflicts = [n for n, v in (("mesh", cfg.mesh),
+                                        ("sequential", cfg.sequential),
+                                        ("eval_fn", cfg.eval_fn)) if v]
+            if conflicts:
+                raise ValueError(
+                    f"checkpoint_dir (resumable execution) is incompatible "
+                    f"with {conflicts} — run those studies unchunked")
+            results = engine.execute_cells_resumable(
+                [sc for sc, _ in cells], sim=sim, params0=params0,
+                num_steps=self.num_steps, seeds=self.seeds(),
+                checkpoint_dir=cfg.checkpoint_dir,
+                checkpoint_every=cfg.checkpoint_every,
+                keep=cfg.checkpoint_keep,
+                halt_on_divergence=cfg.halt_on_divergence)
+        else:
+            results = engine.execute_cells(
+                [sc for sc, _ in cells], sim=sim, params0=params0,
+                num_steps=self.num_steps, seeds=self.seeds(),
+                eval_fn=cfg.eval_fn, eval_every=cfg.eval_every,
+                mesh=cfg.mesh, sequential=cfg.sequential,
+                client_reduction=cfg.client_reduction, degrade=cfg.degrade)
         axes = dict(self._sweep_axes())
         axes["seed"] = self._seed_values()
         return GridResult(

@@ -24,7 +24,11 @@ tolerance ``test_torch_lm.py`` holds the port to against JAX.
 
 The experiments engine on the card: the quadratic ``fig1`` study runs
 each cell and seed through K2, one launch a step, and each cell's seed
-equals a standalone ``ClientSimulator.run`` bit for bit.
+equals a standalone ``ClientSimulator.run`` bit for bit. Faults on the
+card: every row NaN-poisoned and dropped leaves the params unmoved and
+finite through the masked K2 and K1; a rate-0 fault equals the clean
+cell bit for bit; a checkpointed study, resumed from a middle
+checkpoint, equals the uninterrupted one bit for bit.
 
 K4 (the gated-linear-recurrence scan) against its plain sequential
 version on the same inputs: ``max|K4 − plain| ≤ 1e-4·max|plain|``, as in
@@ -33,6 +37,7 @@ version on the same inputs: ``max|K4 − plain| ≤ 1e-4·max|plain|``, as in
 
 import ctypes
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -41,7 +46,8 @@ import torch
 from repro_torch import random as trandom
 from repro_torch.core import (ClientSimulator, DeterministicArrivals,
                               make_quadratic, make_scheduler, ravel_pytree)
-from repro_torch.experiments import get_study
+from repro_torch.experiments import (Scenario, execute_cells,
+                                     execute_cells_resumable, get_study)
 from repro_torch.data import ClientBatcher
 from repro_torch.configs import get_config
 from repro_torch.kernels.aggregate import ops, ref
@@ -53,7 +59,7 @@ from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import transformer
 from repro_torch.models.cnn import client_grads_fn, init_cnn
 from repro_torch.models.ssm import chunked_gla
-from repro_torch.optim import sgd
+from repro_torch.optim import momentum, sgd
 
 pytestmark = pytest.mark.cuda
 
@@ -348,6 +354,92 @@ def test_fig1_study_on_card_through_k2(card):
     for name in result:
         assert torch.equal(result[name].history.participation.cpu(),
                            on_cpu[name].history.participation)
+
+
+def _quadratic_on(card, n=8, dim=8):
+    problem = make_quadratic(trandom.PRNGKey(0, device=card), n, dim=dim)
+    return problem, dict(
+        grads_fn=lambda w, k, t: problem.all_grads(w, key=k, noise=0.05),
+        p=problem.p, loss_fn=problem.suboptimality, use_kernel=True)
+
+
+def _fault_cell(name, n, faults=None, **kw):
+    return Scenario(name=name, scheduler="alg1", arrivals="periodic",
+                    n_clients=n, horizon=13, faults=faults, fault_kwargs=kw)
+
+
+@pytest.mark.parametrize("opt,kernel", [
+    (lambda: sgd(0.01), "masked_scaled_aggregate_update"),
+    (lambda: momentum(0.001, beta=0.9), "masked_scaled_aggregate")],
+    ids=["sgd-K2", "momentum-K1"])
+def test_dropped_nan_rows_on_card(card, opt, kernel):
+    """drop_corrupt with every row NaN-poisoned and dropped, through the
+    masked K2 (sgd) and K1 (momentum) on the card: one launch a step,
+    params unmoved and finite, no delivered weight."""
+    n, steps = 8, 12
+    _, kw = _quadratic_on(card, n)
+    sim = ClientSimulator(optimizer=opt(), device=card, **kw)
+    leak = _fault_cell("leak", n, "drop_corrupt", drop_rate=1.0,
+                       corrupt_rate=1.0, scale=float("nan"))
+    w0 = torch.full((8,), 5.0, device=card)
+    ops.reset_launch_counts()
+    cell = execute_cells([leak], sim=sim, params0=w0, num_steps=steps,
+                         seeds=[0, 1])["leak"]
+    torch.cuda.synchronize()
+    assert ops.launch_counts[kernel] == 2 * steps
+    assert torch.equal(cell.params, w0.expand(2, 8))
+    assert bool(cell.history.finite.all())
+    assert bool((cell.history.weight_sum == 0).all())
+    assert cell.diverged.tolist() == [-1, -1]
+
+
+def test_rate0_fault_is_the_identity_through_k2(card):
+    """A drop fault at rate 0 runs K2's masked body under an all-ones
+    mask: bit for bit the clean cell's unmasked run."""
+    n, steps = 8, 12
+    _, kw = _quadratic_on(card, n)
+    sim = ClientSimulator(optimizer=sgd(0.01), device=card, **kw)
+    cells = [_fault_cell("clean", n), _fault_cell("rate0", n, "drop", rate=0.0),
+             _fault_cell("stale0", n, "stale", rate=0.0, delay=2)]
+    out = execute_cells(cells, sim=sim, params0=torch.full((8,), 5.0,
+                                                           device=card),
+                        num_steps=steps, seeds=[3])
+    for name in ("rate0", "stale0"):
+        for x, y in zip(out[name].history, out["clean"].history):
+            assert torch.equal(x, y), name
+        assert torch.equal(out[name].params, out["clean"].params)
+
+
+def test_resumed_k2_study_on_card_is_bitwise(card, tmp_path):
+    """A checkpointed study on the card (K2, faults, a ragged cell)
+    equals execute_cells, and resuming its directory from a middle
+    checkpoint equals the uninterrupted run, bit for bit."""
+    n, steps = 8, 12
+    _, kw = _quadratic_on(card, n)
+    sim = ClientSimulator(optimizer=sgd(0.01), device=card, **kw)
+    cells = [_fault_cell("clean", n), _fault_cell("drop", n, "drop", rate=0.3),
+             _fault_cell("stale_n6", 6, "stale", rate=0.5, delay=3)]
+    run = dict(sim=sim, params0=torch.full((8,), 5.0, device=card),
+               num_steps=steps, seeds=[0, 1])
+    plain = execute_cells(cells, **run)
+    ck = str(tmp_path / "ck")
+    whole = execute_cells_resumable(cells, checkpoint_dir=ck,
+                                    checkpoint_every=5, keep=0, **run)
+    for gid in sorted(os.listdir(ck)):
+        if gid.startswith("g"):  # keep only step 5 of every group
+            for f in os.listdir(os.path.join(ck, gid)):
+                if f != "step_5.npz":
+                    os.remove(os.path.join(ck, gid, f))
+    resumed = execute_cells_resumable(cells, checkpoint_dir=ck,
+                                      checkpoint_every=5, keep=0, **run)
+    for other in (whole, resumed):
+        for name in plain:
+            a = [x for x in (plain[name].params, *plain[name].history,
+                             plain[name].diverged)]
+            b = [x for x in (other[name].params, *other[name].history,
+                             other[name].diverged)]
+            for x, y in zip(a, b):
+                assert x.device.type == "cuda" and torch.equal(x, y), name
 
 
 K3_CASES = [  # (B, H, Hkv, S, T, Dh), causal, window, dtype

@@ -279,16 +279,34 @@ def test_refusals_name_their_roadmap_step(prob):
         TE.execute_cells(cells, mesh=object(), **kw)
     with pytest.raises(NotImplementedError, match="step 4"):
         TE.execute_cells(cells, executable_cache=object(), **kw)
+    # Faults are ported: an unknown family raises JAX's ValueError before
+    # any step, on either path and through the axis; a registered one runs.
     faulty = [TE.Scenario(name="f", scheduler="alg1", arrivals="periodic",
                           n_clients=N_CAP, horizon=T + 1,
                           faults="drop_updates")]
+    jfaulty = [JE.Scenario(name="f", scheduler="alg1", arrivals="periodic",
+                           n_clients=N_CAP, horizon=T + 1,
+                           faults="drop_updates")]
+    with pytest.raises(ValueError) as je:
+        jfaulty[0].build_faults()
     for sequential in (False, True):
-        with pytest.raises(NotImplementedError, match="step 2"):
+        with pytest.raises(ValueError) as te:
             TE.execute_cells(faulty, sequential=sequential, **kw)
-    with pytest.raises(NotImplementedError, match="step 2"):
-        TE.Study("s", num_steps=T, axes={
-            "scheduler": "alg1", "arrivals": "periodic",
-            "faults": "drop_updates"}).resolve()
+        assert str(te.value) == str(je.value)
+    axis = TE.get_axis("faults")
+    for value in ("drop_updates", ("drop_updates", {"rate": 0.1})):
+        with pytest.raises(ValueError) as je:
+            JE.get_axis("faults").validate(value)
+        with pytest.raises(ValueError) as te:
+            axis.validate(value)
+        assert str(te.value) == str(je.value)
+    (cell,) = TE.Study("s", num_steps=T, axes={
+        "scheduler": "alg1", "arrivals": "periodic",
+        "faults": ("drop", {"rate": 0.25})}).resolve()
+    assert (cell.faults, cell.fault_kwargs) == ("drop", {"rate": 0.25})
+    ran = TE.execute_cells([cell], sim=_sim(prob), params0=torch.from_numpy(W0),
+                           num_steps=4, seeds=1)[cell.name]
+    assert ran.history.weight_sum.shape == (1, 4)
     # The fault-free value of the axis is the plain program.
     (cell,) = TE.Study("s", num_steps=T, axes={
         "scheduler": "alg1", "arrivals": "periodic", "faults": None}).resolve()

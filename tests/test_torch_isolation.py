@@ -48,7 +48,9 @@ def test_port_modules_include_the_experiments_engine():
                  "repro_torch.experiments.engine",
                  "repro_torch.experiments.results",
                  "repro_torch.experiments.scenario",
-                 "repro_torch.experiments.study"):
+                 "repro_torch.experiments.study",
+                 "repro_torch.core.faults", "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.checkpoint"):
         assert name in modules
     scripts = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"examples_torch/quickstart.py", "examples_torch/paper_cifar.py",

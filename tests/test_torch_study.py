@@ -29,9 +29,11 @@ Against the JAX package, on the same inputs:
   short grid through the port's ``get_study("fig1")`` and writes its CSV.
 
 And inside the port: ``Study.simulator`` memoizes and is bounded at
-``SIM_CACHE_SIZE``; the refused parts (mesh, checkpoints, manifests)
-raise ``NotImplementedError`` naming their ROADMAP step; with no card
-and no ``device=``, the study, the examples and the bench raise.
+``SIM_CACHE_SIZE``; the refused parts (mesh, manifests) raise
+``NotImplementedError`` naming their ROADMAP step, ``checkpoint_dir``
+runs and equals the unchunked study bit for bit, and with a mesh it
+raises JAX's ``ValueError``; with no card and no ``device=``, the
+study, the examples and the bench raise.
 """
 
 import csv
@@ -48,6 +50,7 @@ from repro import experiments as JE
 from repro.core import convergence as jconv
 from repro.optim import sgd as j_sgd
 from repro_torch import experiments as TE
+from repro_torch._tree import tree_leaves
 from repro_torch.core import convergence as tconv
 from repro_torch.optim import sgd as t_sgd
 
@@ -246,7 +249,7 @@ def test_simulator_memoized_and_bounded(problems):
     assert study.clear_cache() == stats and study.cache_stats()["size"] == 0
 
 
-def test_refusals_name_their_roadmap_step(problems):
+def test_refusals_name_their_roadmap_step(problems, tmp_path):
     _, tprob = problems
     study = TE.get_study("fig1", n_clients=N_CAP, num_steps=3, seeds=1)
     kw = dict(grads_fn=lambda w, k, t: tprob.all_grads(w), p=tprob.p,
@@ -254,8 +257,18 @@ def test_refusals_name_their_roadmap_step(problems):
               device="cpu")
     with pytest.raises(NotImplementedError, match="step 7"):
         study.run(config=TE.ExecutionConfig(mesh=object()), **kw)
-    with pytest.raises(NotImplementedError, match="step 3"):
-        study.run(config=TE.ExecutionConfig(checkpoint_dir="ckpt"), **kw)
+    # checkpoint_dir is ported: it runs, and with a mesh it is refused
+    # as the JAX package refuses it.
+    ckpt = study.run(config=TE.ExecutionConfig(
+        checkpoint_dir=str(tmp_path / "ckpt")), **kw)
+    plain = study.run(**kw)
+    for cell in plain:
+        for x, y in zip(tree_leaves(tuple(ckpt[cell])),
+                        tree_leaves(tuple(plain[cell]))):
+            assert torch.equal(x, y)
+    with pytest.raises(ValueError, match=r"incompatible with \['mesh'\]"):
+        study.run(config=TE.ExecutionConfig(
+            checkpoint_dir=str(tmp_path / "m"), mesh=object()), **kw)
     cfg = TE.ExecutionConfig()
     for call in (cfg.to_manifest, cfg.to_json, study.to_manifest,
                  study.to_json, lambda: TE.ExecutionConfig.from_manifest({}),

@@ -32,6 +32,7 @@ from repro_torch import random as trandom
 from repro_torch.convert import carry_from_jax, params_from_jax
 from repro_torch.core import ClientSimulator as TSim
 from repro_torch.core import DeterministicArrivals as TDet
+from repro_torch.core import StaleUpdates
 from repro_torch.core import make_scheduler as t_make_scheduler
 from repro_torch.data import ClientBatcher as TBatcher
 from repro_torch.models.cnn import client_grads_fn
@@ -203,12 +204,20 @@ def test_default_device_is_the_card():
 
 
 def test_unported_paths_raise():
+    """The legacy per-leaf carry and mixed-dtype parameters refuse,
+    naming their ROADMAP step; ``faults=`` is ported and accepted, and
+    the constructor's component reaches the carry."""
     kw = dict(grads_fn=lambda p, k, t: p, p=np.ones(2) / 2,
               optimizer=t_sgd(0.1), device="cpu")
-    with pytest.raises(NotImplementedError, match="flat=False"):
+    with pytest.raises(NotImplementedError, match="flat=False.*step 5"):
         TSim(**kw, flat=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        TSim(**kw, faults=object())
+    stale = StaleUpdates(0.5, delay=3)
+    faulty = TSim(**kw, faults=stale)
+    assert faulty.faults is stale
+    carry = faulty.init(trandom.PRNGKey(0, device="cpu"), torch.zeros(4),
+                        scheduler=t_make_scheduler("alg1", 2),
+                        energy=TDet.periodic([1, 2], 4))
+    assert carry.fault_state.shape == (3, 2, 4)
     sim = TSim(**kw)
-    with pytest.raises(NotImplementedError, match="mixed-dtype"):
+    with pytest.raises(NotImplementedError, match="mixed-dtype.*step 5"):
         sim.flat_spec({"a": torch.zeros(2), "b": torch.zeros(2, dtype=torch.float64)})
