@@ -79,7 +79,28 @@ without printing its result line:
    directory is resumed (bitwise the uninterrupted run, only the
    missing steps launched) and replayed once finished (no launch).
    Each line carries the card's name and power limit.
-7. K3 phase: the flash-attention kernel against its plain version
+7. Serve phase: the Study service (``repro_torch.serve.StudyService``)
+   on the card over the Fig-1 CNN (the faults phase's data and params,
+   ``sgd(0.05)``, ``use_kernel=True``, cuDNN deterministic). A cold
+   round of 8 JSON manifests of one structure (alg1 on the Fig-1
+   arrivals, n = 10, 15, ..., 40, 40 in a capacity of 40, seed 1, 20
+   steps): every response without error, one dispatch, one compile,
+   exactly 160 K2 launches, and the n = 10 and n = 40 responses bit for
+   bit their solo ``Study.run``. A warm round of the same 8: no new
+   compile, responses bit for bit the cold round's. 4 threads submit
+   through ``BackgroundServer`` beside a competing flusher: the K2 count
+   exact, every response bit for bit the cold round's of its n. One
+   momentum manifest through K1. A child process (this script with
+   ``--serve-child``) serves 3 checkpointed manifests (40 steps, chunks
+   of 10) and SIGKILLs itself after its second checkpoint; a fresh
+   service's ``recover()`` resumes the dispatch, bit for bit an
+   uninterrupted checkpointed dispatch, launching only the missing
+   steps. Then ``repro_torch.launch.serve --demo --demo-requests 4
+   --demo-steps 30`` in this process. Prints each round's wall time,
+   p50/p99 request latency (taken after the card finished), scenarios/s
+   and launches, with the card's name and power limit. Any response
+   with an ``error`` fails the phase.
+8. K3 phase: the flash-attention kernel against its plain version
    computed in f32 from the same inputs, at the prefill shape of the LM
    phase (B = 8, H = 32, S = T = 2,048, Dh = 64, causal, bf16),
    minitron-4b's attention at the same B and S (H = 24, Hkv = 8,
@@ -91,7 +112,7 @@ without printing its result line:
    bound, with the achieved TFLOP/s, the share of the bound, and the
    time the exponentials take at the MUFU rate (one ex2 per visible
    score, 16 a clock per SM at the card's top SM clock).
-8. K4 phase: the gated-linear-recurrence scan through
+9. K4 phase: the gated-linear-recurrence scan through
    ``repro_torch.kernels.ssm_scan.gla_scan`` at the full width of the two
    layers it serves, B = 8 × S = 2,048, chunk 64: zamba2-2.7b's Mamba2
    layer (H = 80, dk = dv = 64; a and v f32, k and q bf16, one row a
@@ -108,7 +129,7 @@ without printing its result line:
    the larger of the bytes and 3 x the operations at the TF32 tensor-core
    rate (3xTF32). The line also prints the bound at the f32 rate, the
    count earlier runs report; the ``kernels`` line holds the route's.
-9. LM phase: stablelm-1.6b at full width (24 layers, d_model 2048, 32
+10. LM phase: stablelm-1.6b at full width (24 layers, d_model 2048, 32
    heads of 64, d_ff 5632, vocab 100352, bf16; random weights from a
    seed). Three prefills of B = 8 × S = 2,048 through
    ``make_prefill_step`` with ``use_flash=True``: the K3 count is set to
@@ -123,9 +144,9 @@ without printing its result line:
    reference prefill of those 448 tokens by the same rule, and 64
    greedy steps. ``torch.profiler`` over one prefill and one decode
    step, and the peak device memory.
-10. Prints the ``kernels`` JSON line (K1 and K2 also carry the engine
-   and faults phases' counts, ``engine_launches`` and
-   ``faults_launches``), then the result line.
+11. Prints the ``kernels`` JSON line (K1 and K2 also carry the engine,
+   faults and serve phases' counts, ``engine_launches``,
+   ``faults_launches`` and ``serve_launches``), then the result line.
 
 Tolerances: f32 aggregate kernels against the plain versions
 rtol=atol=1e-6 (the client sum runs in another order; weights at the
@@ -178,6 +199,13 @@ FAULT_CELLS = (
                             "length": 4, "period": 20}),
 )
 RESUME_CELLS, CHECKPOINT_EVERY, TIMING_REPEATS = ("clean", "drop", "stale"), 10, 3
+# Serve phase: the populations of the 8 manifests of a round (alg1 on
+# the Fig-1 arrivals, seed 1), their steps, the submitting threads, and
+# the populations of the recovered dispatch (STEPS steps, checkpoints
+# every CHECKPOINT_EVERY).
+SERVE_POPULATIONS, SERVE_STEPS, SERVE_THREADS = (
+    (10, 15, 20, 25, 30, 35, 40, 40), 20, 4)
+RECOVER_POPULATIONS = (20, 30, 40)
 # Steps a fault cell is profiled over: a step's device ops do not vary,
 # and the profiler's own cost grows with the ops it records.
 FAULT_PROFILE_STEPS = 2
@@ -859,6 +887,260 @@ def faults_phase(torch, rt, data, card):
     return counts
 
 
+def serve_manifest(rt, name, n, steps=None):
+    """One request of the serve phase: alg1 on the Fig-1 arrivals (the
+    engine phase's ``fig1`` study's taus) at population ``n``, seed 1,
+    ``steps`` steps (default SERVE_STEPS), as JSON."""
+    return rt.experiments.Study(name, num_steps=steps or SERVE_STEPS, axes={
+        "scheduler": "alg1", "arrivals": "periodic", "n_clients": n,
+        "taus_profile": [1, 5, 10, 20], "seeds": [ENGINE_SEEDS[0]]}).to_json()
+
+
+def serve_service(rt, data, optimizer=None, **kw):
+    """A StudyService on the card over the Fig-1 CNN through the
+    aggregate kernels."""
+    batcher = data["batcher"]
+    return rt.serve.StudyService(
+        grads_fn=data["grads_fn"], p=batcher.p,
+        optimizer=optimizer or rt.optim.sgd(LR), use_kernel=True,
+        params0=data["params0"], device=DEVICE, **kw)
+
+
+def recover_manifests(rt):
+    return [serve_manifest(rt, f"recover{i}", n, STEPS)
+            for i, n in enumerate(RECOVER_POPULATIONS)]
+
+
+def serve_child(root):
+    """The serve phase's checkpointed dispatch, served into ``root`` by
+    a child process that SIGKILLs itself right after its second
+    checkpoint is written. Returns only if it was not killed."""
+    import torch
+
+    rt = load_port()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    batcher, params0, _, _ = fig1_setup(torch, rt)
+    data = {"batcher": batcher, "params0": params0,
+            "grads_fn": rt.models.client_grads_fn(batcher)}
+    manager = rt.checkpoint.CheckpointManager
+    real_save, saved = manager.save, []
+
+    def save_then_die(self, step, state):
+        out = real_save(self, step, state)
+        saved.append(step)
+        if len(saved) == 2:
+            os.kill(os.getpid(), signal.SIGKILL)
+        return out
+
+    manager.save = save_then_die
+    svc = serve_service(rt, data, checkpoint_root=root)
+    config = rt.experiments.ExecutionConfig(checkpoint_every=CHECKPOINT_EVERY)
+    for m in recover_manifests(rt):
+        svc.submit(m, config)
+    responses = svc.flush()
+    print(f"serve child: the dispatch ended without being killed: "
+          f"{[r.error for r in responses]}", file=sys.stderr)
+    return 1
+
+
+def serve_phase(torch, rt, data, card):
+    """The Study service at the Fig-1 width on the card, through K2 and
+    K1: a cold and a warm round of 8 JSON manifests, concurrent
+    submitters, a service killed by SIGKILL and recovered, and the serve
+    launcher's demo. Returns the launch counts of each counted run."""
+    import threading
+
+    from repro_torch.launch import serve as serve_launcher
+
+    phase_t0 = time.perf_counter()
+    rx, ops = rt.experiments, rt.kernels.aggregate.ops
+    k1, k2 = "masked_scaled_aggregate", "masked_scaled_aggregate_update"
+    data = dict(data, grads_fn=rt.models.client_grads_fn(data["batcher"]))
+    counts = {}
+
+    def counted(label, fn, n_k1, n_k2):
+        """Run ``fn`` with the counts set to 0 before it; check and keep
+        the counts read after it; return its result and wall seconds."""
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts[label] = dict(ops.launch_counts)
+        check(counts[label] == {k1: n_k1, k2: n_k2},
+              f"serve {label}: launch counts {counts[label]}, expected "
+              f"{k1} {n_k1}, {k2} {n_k2}")
+        return out, seconds
+
+    def served(label, responses, n):
+        errors = [f"{r.request_id}: {r.error}" for r in responses
+                  if r.error is not None]
+        check(not errors, f"serve {label}: dispatch errors {errors}")
+        check(len(responses) == n, f"serve {label}: {len(responses)} "
+              f"responses, expected {n}")
+        return responses
+
+    def flush_all(svc, manifests, config=None):
+        for m in manifests:
+            svc.submit(m, config)
+        return svc.flush()
+
+    def same_grid(a, b):
+        return list(a.cells) == list(b.cells) and all(
+            same_cell(torch, a.cells[c], b.cells[c]) for c in a.cells)
+
+    def latency(responses):
+        """p50 and p99 of the responses' latency (nearest rank)."""
+        lat = sorted(r.timings["latency_us"] / 1e3 for r in responses)
+        p50, p99 = (lat[min(len(lat) - 1, int(q * len(lat)))]
+                    for q in (0.5, 0.99))
+        return f"p50 {p50:.1f} ms, p99 {p99:.1f} ms"
+
+    torch.backends.cudnn.deterministic = True
+    manifests = [serve_manifest(rt, f"serve{i}", n)
+                 for i, n in enumerate(SERVE_POPULATIONS)]
+    n_req, n_k2 = len(manifests), len(manifests) * SERVE_STEPS
+    svc = serve_service(rt, data)
+    cold, cold_s = counted("cold", lambda: flush_all(svc, manifests), 0, n_k2)
+    served("cold", cold, n_req)
+    stats = svc.stats()
+    check(cold[0].batch["dispatches"] == 1 and stats["compiles"] == 1
+          and cold[0].batch["new_compiles"] == 1,
+          f"serve cold: {cold[0].batch}, compiles {stats['compiles']}: "
+          f"expected one dispatch and one compile")
+    for n in (SERVE_POPULATIONS[0], N_CLIENTS):
+        i = SERVE_POPULATIONS.index(n)
+        alone = rx.Study.from_json(manifests[i]).run(
+            params0=data["params0"], grads_fn=data["grads_fn"],
+            p=data["batcher"].p, optimizer=rt.optim.sgd(LR),
+            use_kernel=True, device=DEVICE)
+        check(same_grid(cold[i].result, alone),
+              f"serve cold: the n={n} response differs from its solo "
+              f"Study.run")
+    print(f"serve cold round: {n_req} JSON manifests (alg1, Fig-1 arrivals, "
+          f"n = {list(SERVE_POPULATIONS)} at N_cap {N_CLIENTS}, seed "
+          f"{ENGINE_SEEDS[0]}, {SERVE_STEPS} steps) in {cold_s:.2f} s: "
+          f"{cold[0].batch['dispatches']} dispatch, compiles "
+          f"{stats['compiles']}, {counts['cold'][k2]} K2 + "
+          f"{counts['cold'][k1]} K1 launches; latency {latency(cold)}; "
+          f"{n_req / cold_s:.2f} scenarios/s; the n={SERVE_POPULATIONS[0]} "
+          f"and n={N_CLIENTS} responses equal their solo Study.run bit for "
+          f"bit [{card}]")
+
+    warm, warm_s = counted("warm", lambda: flush_all(svc, manifests), 0, n_k2)
+    served("warm", warm, n_req)
+    check(warm[0].batch["new_compiles"] == 0
+          and warm[0].batch["cache_hits"] == 1,
+          f"serve warm: {warm[0].batch}: expected a cache hit, no compile")
+    check(all(same_grid(a.result, b.result) for a, b in zip(cold, warm)),
+          "serve warm: a response differs from the cold round's")
+    print(f"serve warm round: the same {n_req} manifests in {warm_s:.2f} s, "
+          f"new compiles {warm[0].batch['new_compiles']}, cache hits "
+          f"{warm[0].batch['cache_hits']}, {counts['warm'][k2]} K2 launches; "
+          f"latency {latency(warm)}; {n_req / warm_s:.2f} scenarios/s; bit "
+          f"for bit the cold round [{card}]")
+
+    # Concurrent submitters through the batching thread, and a competing
+    # flusher: dispatches may overlap on the card's default stream.
+    pops = [SERVE_POPULATIONS[2 * i] for i in range(SERVE_THREADS)]
+    by_n = {n: cold[SERVE_POPULATIONS.index(n)].result for n in pops}
+    results, failures = {}, []
+
+    def submitter(i, n):
+        try:
+            rid = svc.submit(serve_manifest(rt, f"thread{i}", n))
+            results[i] = svc.wait(rid, timeout=600)
+        except Exception as e:  # noqa: BLE001 — reported by the check
+            failures.append(f"thread {i}: {type(e).__name__}: {e}")
+
+    def concurrent():
+        threads = [threading.Thread(target=submitter, args=(i, n))
+                   for i, n in enumerate(pops)]
+        flusher = threading.Thread(target=lambda: [
+            svc.flush() or time.sleep(0.005) for _ in range(100)])
+        with rt.serve.BackgroundServer(svc):
+            for t in threads + [flusher]:
+                t.start()
+            for t in threads + [flusher]:
+                t.join(timeout=600)
+        return [results[i] for i in sorted(results)]
+
+    conc, conc_s = counted("concurrent", concurrent, 0,
+                           SERVE_THREADS * SERVE_STEPS)
+    check(not failures, f"serve concurrent: {failures}")
+    served("concurrent", conc, SERVE_THREADS)
+    check(all(same_grid(r.result, by_n[n]) for r, n in zip(conc, pops)),
+          "serve concurrent: a response differs from the cold round's")
+    print(f"serve concurrent: {SERVE_THREADS} threads submitting n = {pops} "
+          f"through BackgroundServer with a competing flusher, served in "
+          f"{conc_s:.2f} s, {counts['concurrent'][k2]} K2 launches counted "
+          f"exactly, every response bit for bit the cold round's [{card}]")
+
+    msvc = serve_service(rt, data, rt.optim.momentum(LR * 0.1, beta=0.9))
+    mom, mom_s = counted("momentum", lambda: flush_all(
+        msvc, [serve_manifest(rt, "momentum", N_CLIENTS)]), SERVE_STEPS, 0)
+    served("momentum", mom, 1)
+    print(f"serve momentum: 1 manifest through K1 in {mom_s:.2f} s, "
+          f"{counts['momentum'][k1]} K1 launches [{card}]")
+
+    recover = recover_manifests(rt)
+    config = rx.ExecutionConfig(checkpoint_every=CHECKPOINT_EVERY)
+    n_rec = len(recover) * STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, whole_s = counted("checkpointed", lambda: flush_all(
+            serve_service(rt, data, checkpoint_root=os.path.join(
+                tmp, "whole")), recover, config), 0, n_rec)
+        served("checkpointed", whole, len(recover))
+        root = os.path.join(tmp, "killed")
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--serve-child",
+             root], capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        check(child.returncode == -signal.SIGKILL,
+              f"serve recover: the child exited {child.returncode}, not by "
+              f"SIGKILL:\n{child.stdout[-3000:]}{child.stderr[-3000:]}")
+        check(os.listdir(root) == [os.path.basename(
+            whole[0].batch["checkpoint_dir"])],
+              f"serve recover: the killed service's root holds "
+              f"{os.listdir(root)}, not the dispatch's directory")
+        fresh = serve_service(rt, data, checkpoint_root=root)
+        rids, rec_s = counted("recover", fresh.recover, 0,
+                              n_rec - 2 * CHECKPOINT_EVERY * len(recover))
+        rec = served("recover", [fresh.result(r) for r in rids],
+                     len(recover))
+        resumed = rec[0].batch["resumed_steps"]
+        check(resumed == 2 * CHECKPOINT_EVERY,
+              f"serve recover: resumed_steps {resumed}, expected "
+              f"{2 * CHECKPOINT_EVERY}")
+        by_study = {r.study: r.result for r in whole}
+        check(all(same_grid(r.result, by_study[r.study]) for r in rec),
+              "serve recover: a recovered response differs from the "
+              "uninterrupted checkpointed dispatch")
+    torch.backends.cudnn.deterministic = False
+    print(f"serve recover: a child service ran {len(recover)} checkpointed "
+          f"manifests (n = {list(RECOVER_POPULATIONS)}, {STEPS} steps, "
+          f"checkpoints every {CHECKPOINT_EVERY}) and was killed by SIGKILL "
+          f"after its 2nd checkpoint ({child_s:.1f} s); a fresh service's "
+          f"recover() took {rec_s:.2f} s wall, resumed_steps {resumed}, "
+          f"{counts['recover'][k2]} K2 launches, bit for bit the "
+          f"uninterrupted checkpointed dispatch ({whole_s:.2f} s, "
+          f"{counts['checkpointed'][k2]} K2 launches) [{card}]")
+
+    demo, demo_s = counted("demo", lambda: serve_launcher.main(
+        ["--demo", "--demo-requests", "4", "--demo-steps", "30"]), 0,
+        4 * 2 * 30)
+    served("demo", demo, 4)
+    print(f"serve demo: repro_torch.launch.serve --demo (4 requests x 2 "
+          f"seeds x 30 quadratic steps) in {demo_s:.2f} s, "
+          f"{counts['demo'][k2]} K2 launches; the serve phase took "
+          f"{time.perf_counter() - phase_t0:.1f} s [{card}]")
+    return counts
+
+
 K3_CASES = (  # label, (B, H, Hkv, S, T, Dh), causal, window, dtype name
     ("prefill shape", (LM_BATCH, 32, 32, LM_SEQ, LM_SEQ, 64), True, 0, "bfloat16"),
     # src/repro/configs/minitron_4b.py: 24 query heads over 8 kv heads of 128.
@@ -1340,6 +1622,7 @@ def load_port():
     """Import the port from ``./src``."""
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch as rt
+    import repro_torch.checkpoint
     import repro_torch.configs
     import repro_torch.core
     import repro_torch.data
@@ -1348,6 +1631,7 @@ def load_port():
     import repro_torch.models
     import repro_torch.optim
     import repro_torch.random
+    import repro_torch.serve
     return rt
 
 
@@ -1360,6 +1644,8 @@ def main():
         return 1
     if sys.argv[1:2] == ["--resume-child"]:
         return resume_child(sys.argv[2])
+    if sys.argv[1:2] == ["--serve-child"]:
+        return serve_child(sys.argv[2])
     rt = load_port()
     from repro_torch.kernels import _build
     from repro_torch.kernels.aggregate import ops, ref
@@ -1405,6 +1691,7 @@ def main():
     launches, fig1_data = fig1_phase(torch, rt)
     engine_counts = engine_phase(torch, rt, fig1_data)
     fault_counts = faults_phase(torch, rt, fig1_data, card)
+    serve_counts = serve_phase(torch, rt, fig1_data, card)
     del fig1_data
     k3_err, k3_timing = k3_phase(torch, fa_ops, fa_ref, peaks, sm_clock_hz)
     launches["gla_scan"], k4_err, k4_timing = k4_phase(
@@ -1438,6 +1725,8 @@ def main():
                 label: c[name] for label, c in engine_counts.items()}
             kernels[-1]["faults_launches"] = {
                 label: c[name] for label, c in fault_counts.items()}
+            kernels[-1]["serve_launches"] = {
+                label: c[name] for label, c in serve_counts.items()}
         if key == "k3":
             kernels[-1]["shapes"] = k3_timing
     # K4's main path is one scan at each of two shapes: its times and bound

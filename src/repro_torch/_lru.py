@@ -5,9 +5,9 @@ nothing of the JAX package). :meth:`repro_torch.experiments.Study.
 simulator` memoizes its simulators in one, so a long-running process
 cycling through many problems evicts the coldest simulator instead of
 pinning every simulator and the dataset its ``grads_fn`` captured. The
-JAX package's other two users, the serve layer's executable cache and
-the StudyService response store, are not ported yet (ROADMAP Queue 1
-step 4); the counters are the same, so they can be.
+serve layer keeps two more: the executable cache's runners
+(:class:`repro_torch.serve.ExecutableCache`) and the StudyService's
+bounded response store.
 
 The cache is thread-safe: every mutation of the underlying
 ``OrderedDict`` (including ``move_to_end`` on a hit) holds an internal

@@ -4,8 +4,10 @@ Port of ``repro.checkpoint.checkpoint``. Leaves are flattened with
 :func:`repro_torch._tree.tree_flatten_with_path`, so the npz carries
 stable, human-readable member names (``carry/params``,
 ``history/loss``); restore verifies that the target structure matches,
-re-types leaves to the template and puts tensors back on the template
-leaf's device. A tensor goes to the host as numpy for the write; a
+re-types leaves to the template where the cast is exact (the JAX
+package's uint32 PRNG key words become the port's int64 ones, so either
+package restores the other's directories) and puts tensors back on the
+template leaf's device. A tensor goes to the host as numpy for the write; a
 dtype npz cannot hold (bf16) is written as f32 and cast back on
 restore, which is exact.
 
@@ -137,6 +139,27 @@ def write_json_atomic(path: str, obj: Any) -> None:
     _write_atomic(path, ".tmp.json", "w", write)
 
 
+def _exact_cast(arr: np.ndarray, want: np.dtype, path: str, key: str):
+    """``arr`` as ``want`` when every value converts exactly: a safe
+    cast (int32 → int64, float32 → float64), or integers into another
+    integer type that holds each of them (uint32 → int64 key words).
+    Anything lossy raises naming the file and the leaf."""
+    if arr.dtype == want or np.can_cast(arr.dtype, want, casting="safe"):
+        return arr.astype(want, copy=False)
+    if arr.dtype.kind in "iu" and want.kind in "iu":
+        info = np.iinfo(want)
+        if arr.size == 0 or (int(arr.min()) >= info.min
+                             and int(arr.max()) <= info.max):
+            return arr.astype(want)
+        raise ValueError(
+            f"checkpoint {path}: dtype mismatch for {key!r}: ckpt "
+            f"{arr.dtype} values [{int(arr.min())}, {int(arr.max())}] do "
+            f"not fit {want} written for the template")
+    raise ValueError(
+        f"checkpoint {path}: dtype mismatch for {key!r}: ckpt {arr.dtype} "
+        f"does not cast exactly to {want} written for the template")
+
+
 def _restored(arr: np.ndarray, leaf):
     """``arr`` as the template leaf's type, dtype and device."""
     if isinstance(leaf, torch.Tensor):
@@ -148,11 +171,13 @@ def restore_pytree(path: str, template: Any) -> Any:
     """Load ``path`` into the structure, dtypes and devices of
     ``template`` (tensors, numpy arrays or Python scalars as leaves).
 
-    Raises ``ValueError`` naming the file when the npz is unreadable
-    (truncated/corrupt), and naming the offending leaf when one member
-    is torn or its shape or dtype disagrees with what :func:`save_pytree`
-    writes for the template; ``KeyError`` when the checkpoint is missing
-    a template leaf.
+    A member whose dtype differs from what :func:`save_pytree` writes
+    for the template is cast to it when the cast is exact
+    (:func:`_exact_cast`). Raises ``ValueError`` naming the file when
+    the npz is unreadable (truncated/corrupt), and naming the offending
+    leaf when one member is torn, its shape disagrees, or its dtype
+    does not cast exactly; ``KeyError`` when the checkpoint is missing a
+    template leaf.
     """
     try:
         data = np.load(path)
@@ -181,13 +206,7 @@ def restore_pytree(path: str, template: Any) -> Any:
                     f"ckpt {tuple(arr.shape)} vs template {tuple(shape)}")
             want = _npz_dtype(leaf.dtype if isinstance(leaf, torch.Tensor)
                               else np.asarray(leaf).dtype)
-            if arr.dtype != want:
-                raise ValueError(
-                    f"checkpoint {path}: dtype mismatch for {key!r}: ckpt "
-                    f"{arr.dtype} vs {want} written for the template (not "
-                    f"a file this package wrote; reading the JAX package's "
-                    f"checkpoints is ROADMAP Queue 1 step 4)")
-            leaves.append(_restored(arr, leaf))
+            leaves.append(_restored(_exact_cast(arr, want, path, key), leaf))
     return tree_unflatten(treedef, leaves)
 
 

@@ -21,10 +21,13 @@ Port of ``repro.experiments`` on one device:
   populations padded per group, each group's cells and seeds run in
   turn through :class:`repro_torch.core.ClientSimulator`; and
   :func:`execute_cells_resumable`, its preemption-safe form
-  (checkpointed chunks, bitwise resume, :func:`study_fingerprint`).
+  (checkpointed chunks, bitwise resume, :func:`study_fingerprint`);
+  and the runner protocol of the serve layer's executable cache
+  (:func:`make_group_runner`, :func:`make_chunk_runner`).
+* :mod:`repro_torch.experiments.manifest` — the JSON wire format of
+  studies and execution configs, shared with the JAX package.
 
-Not ported yet: placement across cards (ROADMAP Queue 1 step 7), and
-manifests with the executable cache (step 4).
+Not ported yet: placement across cards (ROADMAP Queue 1 step 7).
 """
 
 from repro_torch.experiments.axes import (
@@ -48,12 +51,26 @@ from repro_torch.experiments.engine import (
     execute_cells_resumable,
     grid_summary,
     last_downgrades,
+    make_chunk_runner,
+    make_group_runner,
     population_mask,
     resolve_structure_groups,
     run_grid,
     run_grid_sequential,
+    structure_fingerprint,
     study_fingerprint,
     subpopulation_p,
+)
+from repro_torch.experiments.manifest import (
+    EXEC_FORMAT,
+    REQUEST_FORMAT,
+    STUDY_FORMAT,
+    execution_config_from_manifest,
+    execution_config_to_manifest,
+    request_from_manifest,
+    request_to_manifest,
+    study_from_manifest,
+    study_to_manifest,
 )
 from repro_torch.experiments.results import GridResult, default_metric, seed_stats
 from repro_torch.experiments.scenario import (
@@ -79,18 +96,23 @@ from repro_torch.experiments.study import (
 )
 
 __all__ = [
-    "ARRIVAL_KINDS", "AXIS_ORDER", "FIG1_SCHEDULERS", "MANIFEST_FORMAT",
-    "PAPER_TAUS", "SIM_CACHE_SIZE",
+    "ARRIVAL_KINDS", "AXIS_ORDER", "EXEC_FORMAT", "FIG1_SCHEDULERS",
+    "MANIFEST_FORMAT", "PAPER_TAUS", "REQUEST_FORMAT", "SIM_CACHE_SIZE",
+    "STUDY_FORMAT",
     "AxisSpec", "CellResult", "DowngradeRecord", "ExecutionConfig",
     "GridResult", "Scenario", "StructureGroup", "Study",
     "axis_names", "build_components", "check_unique_names", "clear_cache",
     "default_metric", "default_taus", "divergence_summary", "execute_cells",
-    "execute_cells_resumable",
+    "execute_cells_resumable", "execution_config_from_manifest",
+    "execution_config_to_manifest",
     "get_axis", "get_grid", "get_study", "grid_names", "grid_summary",
-    "last_downgrades", "make_energy_process", "population_mask",
+    "last_downgrades", "make_chunk_runner", "make_energy_process",
+    "make_group_runner", "population_mask",
     "register_axis", "register_grid", "register_study",
-    "register_taus_profile", "resolve_structure_groups",
+    "register_taus_profile", "request_from_manifest", "request_to_manifest",
+    "resolve_structure_groups",
     "resolve_taus_profile", "run_grid", "run_grid_sequential",
-    "scenario_grid", "seed_stats", "study_fingerprint", "study_names",
-    "subpopulation_p",
+    "scenario_grid", "seed_stats", "structure_fingerprint",
+    "study_fingerprint", "study_from_manifest", "study_names",
+    "study_to_manifest", "subpopulation_p",
 ]

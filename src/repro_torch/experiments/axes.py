@@ -68,9 +68,10 @@ class AxisSpec:
     ``validate(value)`` — optional — checks one axis value against the
     registry that owns it (scheduler / arrival-family / fault-family /
     taus-profile names), raising ``ValueError`` that names the registry
-    and its valid keys, so a bad name fails before ``Scenario.build``
-    (the JAX package's manifest layer calls it on every decoded value;
-    manifests are not ported yet, ROADMAP Queue 1 step 4).
+    and its valid keys. The manifest layer
+    (:mod:`repro_torch.experiments.manifest`) calls it on every decoded
+    value, so a bad name fails at ``from_json`` time, not deep inside
+    ``Scenario.build``.
     """
 
     name: str

@@ -39,11 +39,21 @@ group's carries and history after every chunk, stacked into ``(S, R,
 …)`` arrays, the layout the JAX package writes; a run killed at any
 point resumes from its directory bit for bit.
 
+**The runner protocol** (DESIGN.md §11) is the JAX package's: a
+caller-owned ``executable_cache`` (:class:`repro_torch.serve.
+ExecutableCache`) hands :func:`execute_cells` one runner per structure
+group (:func:`make_group_runner`) and :func:`execute_cells_resumable`
+one per group and chunk length (:func:`make_chunk_runner`). Nothing is
+traced or compiled in the port: a runner runs the same code as the
+uncached path, and counts as a "compile" (its ``on_trace`` hook) the
+first run of each batch signature it has not run before, the signature
+that makes the JAX package's jit trace again. So the serve layer's
+counters take the JAX package's values on the same traffic.
+
 Not ported yet, and refused with ``NotImplementedError``: ``mesh`` and
-device placement (ROADMAP Queue 1 step 7), ``executable_cache`` (step
-4), and reading a checkpoint directory the JAX package wrote (step 4).
-A batched cell step (the cells of a group in one step) is a speed-up to
-be judged on a benchmark (ROADMAP, Housekeeping).
+device placement (ROADMAP Queue 1 step 7). A batched cell step (the
+cells of a group in one step) is a speed-up to be judged on a benchmark
+(ROADMAP, Housekeeping).
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import threading
 from typing import Any, NamedTuple, Sequence
 
 import numpy as np
@@ -381,10 +392,150 @@ def _run_cell(sim, key, params0, num_steps, scheduler, energy, faults, p,
     return CellResult(*out) if eval_fn is not None else CellResult(*out, None)
 
 
-def _finish(per_seed: list[CellResult], n: int, n_cap: int) -> CellResult:
-    """Seeds stacked along a leading axis, cropped, quarantine attached."""
-    stacked = tree_map(lambda *xs: torch.stack(xs), *per_seed)
-    return _attach_divergence(_crop_cell(stacked, n, n_cap))
+def _stack_seeds(per_seed: list[CellResult]) -> CellResult:
+    return tree_map(lambda *xs: torch.stack(xs), *per_seed)
+
+
+def _finish(cell: CellResult, n: int, n_cap: int) -> CellResult:
+    """A seed-stacked cell cropped to n, quarantine attached."""
+    return _attach_divergence(_crop_cell(cell, n, n_cap))
+
+
+def _group_body(scheduler, energy, faults, active, p, params0, keys, *,
+                sim: ClientSimulator, num_steps: int, eval_fn=None,
+                eval_every: int = 0) -> list[CellResult]:
+    """One structure group's member cells, each seed in turn: the shared
+    computation behind the uncached path of :func:`execute_cells` and
+    :func:`make_group_runner`, so both give the same bits.
+
+    ``scheduler`` / ``energy`` / ``faults`` are per-member lists;
+    ``active`` / ``p`` per-member lists or None (a uniform group);
+    ``keys`` one key a seed. Returns one uncropped CellResult a member,
+    its leaves stacked along the seed axis R.
+    """
+    cells = []
+    for j in range(len(scheduler)):
+        cells.append(_stack_seeds([
+            _run_cell(sim, key, params0, num_steps, scheduler[j], energy[j],
+                      faults[j], None if p is None else p[j],
+                      None if active is None else active[j], eval_fn,
+                      eval_every)
+            for key in keys]))
+    return cells
+
+
+def _advance_body(carries, scheduler, energy, faults, active, p, *,
+                  sim: ClientSimulator, num_steps: int, spec):
+    """Advance a group's (S, R) carries ``num_steps`` rounds, each member
+    and seed in turn through :meth:`ClientSimulator.run_carry` — the
+    chunked twin of :func:`_group_body`. ``carries`` is a list (members)
+    of lists (seeds); returns the advanced carries and the chunk's
+    histories in the same layout."""
+    out, hists = [], []
+    for j, row in enumerate(carries):
+        crow, hrow = [], []
+        for carry in row:
+            carry, hist = sim.run_carry(
+                carry, num_steps, scheduler=scheduler[j], energy=energy[j],
+                faults=faults[j], p=None if p is None else p[j],
+                active_mask=None if active is None else active[j], spec=spec)
+            crow.append(carry)
+            hrow.append(hist)
+        out.append(crow)
+        hists.append(hrow)
+    return out, hists
+
+
+class _Runner:
+    """A group or chunk body behind the runner protocol (module
+    docstring): it calls ``on_trace`` on the first run of each batch
+    signature — the group key, raggedness, S cells, R seeds and N_cap,
+    what makes the JAX package's jit trace again — and never again for
+    that signature.
+
+    Nothing is compiled: the first run of a signature on the card pays
+    only what any first run pays there, the caching allocator growing
+    to the batch's working set and cuDNN choosing its convolution
+    algorithms for new shapes. ``cache_size()`` is the number of
+    signatures run, the counterpart of a jit wrapper's cache entries.
+    Thread-safe: competing flushers may share a runner.
+    """
+
+    def __init__(self, body, n_cap: int, on_trace=None):
+        self._body = body
+        self._n_cap = int(n_cap)
+        self._on_trace = on_trace
+        self._seen: set = set()
+        self._lock = threading.Lock()
+
+    def _note(self, scheduler, energy, faults, active, n_seeds: int) -> None:
+        sig = (_group_key(scheduler[0], energy[0], faults[0]),
+               active is not None, len(scheduler), int(n_seeds), self._n_cap)
+        with self._lock:
+            new = sig not in self._seen
+            self._seen.add(sig)
+        if new and self._on_trace is not None:
+            self._on_trace()
+
+    def cache_size(self) -> int:
+        with self._lock:
+            return len(self._seen)
+
+
+class _GroupRunner(_Runner):
+    def __call__(self, scheduler, energy, faults, active, p, params0, keys):
+        self._note(scheduler, energy, faults, active, len(keys))
+        return self._body(scheduler, energy, faults, active, p, params0, keys)
+
+
+class _ChunkRunner(_Runner):
+    def __call__(self, carries, scheduler, energy, faults, active, p):
+        self._note(scheduler, energy, faults, active, len(carries[0]))
+        return self._body(carries, scheduler, energy, faults, active, p)
+
+
+def make_group_runner(*, sim: ClientSimulator, num_steps: int, eval_fn=None,
+                      eval_every: int = 0, on_trace=None):
+    """A fresh runner of :func:`_group_body`, called as
+    ``runner(scheduler, energy, faults, active, p, params0, keys)`` with
+    a :class:`StructureGroup`'s per-member lists; returns one uncropped
+    CellResult a member.
+
+    Each runner owns its record of signatures, so dropping it (LRU
+    eviction from :class:`repro_torch.serve.ExecutableCache`) forgets
+    them; ``on_trace`` is called on the first run of each new batch
+    signature (:class:`_Runner`), which is how the serve layer counts
+    compiles as the JAX package does.
+    """
+    return _GroupRunner(
+        lambda *a: _group_body(*a, sim=sim, num_steps=num_steps,
+                               eval_fn=eval_fn, eval_every=eval_every),
+        sim.p.shape[0], on_trace)
+
+
+def make_chunk_runner(*, sim: ClientSimulator, chunk: int, spec,
+                      on_trace=None):
+    """A fresh runner of :func:`_advance_body` — the chunked twin of
+    :func:`make_group_runner`, called as ``runner(carries, scheduler,
+    energy, faults, active, p)``.
+
+    The serve layer's :class:`repro_torch.serve.ExecutableCache`
+    memoizes one per (structure, chunk length, config); a warm resume —
+    the same structure advancing through the same chunk length — runs a
+    signature its runner has run before: zero new compiles.
+    """
+    return _ChunkRunner(
+        lambda *a: _advance_body(*a, sim=sim, num_steps=chunk, spec=spec),
+        sim.p.shape[0], on_trace)
+
+
+def structure_fingerprint(group_key) -> str:
+    """Short stable digest of a :func:`_group_key` signature — the
+    cache-key / response-visible name of one component structure. It
+    hashes the port's own key, so it need not equal the JAX package's
+    digest (whose key holds treedefs); no file or directory name
+    depends on it."""
+    return hashlib.sha256(str(group_key).encode()).hexdigest()[:12]
 
 
 def execute_cells(
@@ -419,9 +570,16 @@ def execute_cells(
     rows of clients that do not exist. Per-client outputs
     (``history.participation``) are cropped back to the natural n.
 
-    ``mesh`` and ``executable_cache`` are refused (ROADMAP Queue 1 steps
-    7 and 4). ``client_reduction`` and ``degrade`` only act on a mesh in
-    the JAX package, so without one they change nothing here either.
+    ``executable_cache`` (DESIGN.md §11) is a caller-owned keyed store
+    of runners: each structure group then runs through
+    ``executable_cache.group_runner((group_key, ragged), sim=...,
+    num_steps=..., eval_fn=..., eval_every=...)``, a
+    :func:`make_group_runner` the cache may memoize, bound and evict.
+    The runner runs the uncached path's code, so the results are the
+    same bits; the cache only counts (module docstring). ``mesh`` is
+    refused (ROADMAP Queue 1 step 7). ``client_reduction`` and
+    ``degrade`` only act on a mesh in the JAX package, so without one
+    they change nothing here either.
 
     Returns ``{scenario.name: CellResult}`` in input order.
     """
@@ -429,8 +587,6 @@ def execute_cells(
     if mesh is not None:
         refuse("mesh= (device placement across cards)", 7,
                "experiments/placement.py")
-    if executable_cache is not None:
-        refuse("executable_cache=", 4, "serve/cache.py")
     scenarios = list(scenarios)
     del _LAST_DOWNGRADES[:]
     names = check_unique_names(scenarios)
@@ -452,21 +608,25 @@ def execute_cells(
                                   energy, faults, p_cell, active, eval_fn,
                                   eval_every)
                         for key in keys]
-            results[sc.name] = _finish(per_seed, sc.n_clients, n_cap)
+            results[sc.name] = _finish(_stack_seeds(per_seed), sc.n_clients,
+                                       n_cap)
         return results
 
     _, _, groups = resolve_structure_groups(scenarios, sim=sim)
     results: list[CellResult | None] = [None] * len(scenarios)
     for grp in groups:
-        for j, idx in enumerate(grp.members):
-            active = grp.active[j] if grp.ragged else None
-            p_cell = grp.p[j] if grp.ragged else None
-            per_seed = [_run_cell(sim, key, params0, num_steps,
-                                  grp.scheduler[j], grp.energy[j],
-                                  grp.faults[j], p_cell, active, eval_fn,
-                                  eval_every)
-                        for key in keys]
-            results[idx] = _finish(per_seed, scenarios[idx].n_clients, n_cap)
+        args = (grp.scheduler, grp.energy, grp.faults, grp.active, grp.p,
+                params0, keys)
+        if executable_cache is not None:
+            runner = executable_cache.group_runner(
+                (grp.key, grp.ragged), sim=sim, num_steps=num_steps,
+                eval_fn=eval_fn, eval_every=eval_every)
+            cells = runner(*args)
+        else:
+            cells = _group_body(*args, sim=sim, num_steps=num_steps,
+                                eval_fn=eval_fn, eval_every=eval_every)
+        for idx, cell in zip(grp.members, cells):
+            results[idx] = _finish(cell, scenarios[idx].n_clients, n_cap)
     return dict(zip(names, results))
 
 
@@ -618,18 +778,20 @@ def _advance_resumable_group(
     grp: StructureGroup, *, gid: str, sim: ClientSimulator, spec, params0,
     keys, num_steps: int, checkpoint_every: int, checkpoint_dir: str,
     keep: int, manifest: dict, manifest_path: str, halt_on_divergence: bool,
-    progress=None,
+    executable_cache=None, progress=None,
 ) -> list[CellResult]:
     """Advance ONE structure group to the horizon, checkpointed.
 
     Restore the group's newest complete checkpoint (or init fresh),
     advance each member cell and seed in turn ``checkpoint_every`` steps
-    at a time through :meth:`ClientSimulator.run_carry`, and after every
-    chunk write ``{carry, history}`` — the group's carries and history
-    stacked into (S, R, …) arrays — plus the study manifest.
-    ``progress(gid, step, num_steps)`` fires once after restore/init and
-    once per completed chunk. Returns one uncropped
-    :class:`CellResult` per member.
+    at a time through :meth:`ClientSimulator.run_carry`
+    (:func:`_advance_body`), and after every chunk write ``{carry,
+    history}`` — the group's carries and history stacked into (S, R, …)
+    arrays — plus the study manifest. ``executable_cache`` routes each
+    chunk through a memoized :func:`make_chunk_runner` (a warm resume
+    adds no compile). ``progress(gid, step, num_steps)`` fires once
+    after restore/init and once per completed chunk. Returns one
+    uncropped :class:`CellResult` per member.
     """
     n_cap = int(sim.p.shape[0])
     n_scen, n_seeds = len(grp.members), len(keys)
@@ -656,18 +818,15 @@ def _advance_resumable_group(
 
     while step < num_steps and not halted:
         chunk = min(checkpoint_every, num_steps - step)
-        hists = []
-        for j in range(n_scen):
-            row = []
-            for r in range(n_seeds):
-                carries[j][r], hist = sim.run_carry(
-                    carries[j][r], chunk, scheduler=grp.scheduler[j],
-                    energy=grp.energy[j], faults=grp.faults[j],
-                    p=grp.p[j] if grp.ragged else None,
-                    active_mask=grp.active[j] if grp.ragged else None,
-                    spec=spec)
-                row.append(hist)
-            hists.append(row)
+        args = (carries, grp.scheduler, grp.energy, grp.faults, grp.active,
+                grp.p)
+        if executable_cache is not None:
+            runner = executable_cache.chunk_runner(
+                (grp.key, grp.ragged, chunk), sim=sim, chunk=chunk, spec=spec)
+            carries, hists = runner(*args)
+        else:
+            carries, hists = _advance_body(*args, sim=sim, num_steps=chunk,
+                                           spec=spec)
         hist = SimHistory(*map(host, _stack2(hists)))
         history = hist if history is None else SimHistory(*(
             np.concatenate([a, b], axis=2) for a, b in zip(history, hist)))
@@ -737,12 +896,15 @@ def execute_cells_resumable(
     ``halt_on_divergence=True`` stops advancing a group once **every**
     (scenario, seed) run has gone non-finite (divergence is absorbing);
     the unrun tail is reported as NaN metrics with ``finite=False``.
-    Eval hooks are not taken on this path. ``executable_cache`` is
-    refused (ROADMAP Queue 1 step 4). ``progress(gid, step, num_steps)``
-    reports per-chunk advancement.
+    Eval hooks are not taken on this path.
+
+    ``executable_cache`` (DESIGN.md §12) memoizes one
+    :func:`make_chunk_runner` per (structure, chunk length) — the serve
+    layer binds its keyed :class:`repro_torch.serve.ExecutableCache`
+    here, so repeat resumable traffic, a warm resume after an
+    interruption included, adds zero new compiles.
+    ``progress(gid, step, num_steps)`` reports per-chunk advancement.
     """
-    if executable_cache is not None:
-        refuse("executable_cache=", 4, "serve/cache.py")
     scenarios = list(scenarios)
     del _LAST_DOWNGRADES[:]  # no ladder here, but keep the report current
     seed_list, keys = _seed_keys(seeds, sim.device)
@@ -790,7 +952,8 @@ def execute_cells_resumable(
             num_steps=num_steps, checkpoint_every=checkpoint_every,
             checkpoint_dir=checkpoint_dir, keep=keep, manifest=manifest,
             manifest_path=manifest_path,
-            halt_on_divergence=halt_on_divergence, progress=progress)
+            halt_on_divergence=halt_on_divergence,
+            executable_cache=executable_cache, progress=progress)
         for idx, cell in zip(grp.members, cells):
             cell = _crop_cell(cell, scenarios[idx].n_clients, n_cap)
             results[idx] = _attach_divergence(cell)

@@ -30,15 +30,17 @@ Named studies (``fig1``, ``fig1_grid``, ``capacity_sweep``,
 grid registry — :func:`repro_torch.experiments.get_grid` resolves
 through it.
 
-Not ported yet: ``ExecutionConfig.mesh`` (ROADMAP Queue 1 step 7) and
-the manifest/JSON round trip (step 4); each raises
-``NotImplementedError``.
+``Study`` and ``ExecutionConfig`` round-trip through JSON manifests
+(:mod:`repro_torch.experiments.manifest`), the wire format the JAX
+package shares. Not ported yet: ``ExecutionConfig.mesh`` (ROADMAP Queue
+1 step 7), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import json
 from typing import Any, Callable, Sequence
 
 from repro_torch._device import resolve_device
@@ -47,17 +49,13 @@ from repro_torch.core.trainer import ClientSimulator
 from repro_torch.experiments import engine
 from repro_torch.experiments.axes import AXIS_ORDER, get_axis
 from repro_torch.experiments.results import GridResult, host
-from repro_torch.experiments.scenario import FIG1_SCHEDULERS, Scenario, refuse
+from repro_torch.experiments.scenario import FIG1_SCHEDULERS, Scenario
 
 #: Bound on the per-Study simulator memoization (:meth:`Study.simulator`).
 #: Each entry pins a ClientSimulator and the datasets its grads_fn
 #: closure captured, so the cache must not grow without bound in a
 #: long-running process (DESIGN.md §11).
 SIM_CACHE_SIZE = 8
-
-
-def _refuse_manifest(what: str):
-    refuse(what, 4, "experiments/manifest.py")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,18 +99,26 @@ class ExecutionConfig:
     # ------------------------------------------------------ serialization
 
     def to_manifest(self) -> dict:
-        _refuse_manifest("ExecutionConfig.to_manifest")
+        """``execution-config/v1`` envelope (DESIGN.md §11). ``mesh`` /
+        ``eval_fn`` hold live objects and must be None."""
+        from repro_torch.experiments import manifest
+
+        return manifest.execution_config_to_manifest(self)
 
     def to_json(self, **json_kw) -> str:
-        _refuse_manifest("ExecutionConfig.to_json")
+        return json.dumps(self.to_manifest(), **json_kw)
 
     @classmethod
     def from_manifest(cls, doc: dict) -> "ExecutionConfig":
-        _refuse_manifest("ExecutionConfig.from_manifest")
+        from repro_torch.experiments import manifest
+
+        return manifest.execution_config_from_manifest(doc)
 
     @classmethod
     def from_json(cls, text: str) -> "ExecutionConfig":
-        _refuse_manifest("ExecutionConfig.from_json")
+        from repro_torch.experiments import manifest
+
+        return manifest.execution_config_from_manifest(manifest.loads(text))
 
 
 class Study:
@@ -171,18 +177,29 @@ class Study:
     # -------------------------------------------------------- serialization
 
     def to_manifest(self) -> dict:
-        _refuse_manifest("Study.to_manifest")
+        """``study/v1`` envelope: name, step budget, ordered axes with
+        fixed/swept flags, seeds (:mod:`repro_torch.experiments.manifest`)."""
+        from repro_torch.experiments import manifest
+
+        return manifest.study_to_manifest(self)
 
     def to_json(self, **json_kw) -> str:
-        _refuse_manifest("Study.to_json")
+        return json.dumps(self.to_manifest(), **json_kw)
 
     @classmethod
     def from_manifest(cls, doc: dict) -> "Study":
-        _refuse_manifest("Study.from_manifest")
+        """Decode a ``study/v1`` envelope — typed-config-from-dict over
+        the axis/scheduler/arrival/fault registries; unknown names raise
+        naming the registry and its valid keys."""
+        from repro_torch.experiments import manifest
+
+        return manifest.study_from_manifest(doc)
 
     @classmethod
     def from_json(cls, text: str) -> "Study":
-        _refuse_manifest("Study.from_json")
+        from repro_torch.experiments import manifest
+
+        return manifest.study_from_manifest(manifest.loads(text))
 
     def _seed_values(self) -> tuple:
         seeds = self.seeds()

@@ -13,12 +13,15 @@ of a few rows each, and each row read at its shift inside its first
 
 ``launch_counts`` counts the kernel launches of each wrapper, so a run
 can show that its path went through the kernels; CPU calls add nothing.
+The count is taken under a lock, so it stays exact when several threads
+launch at once (the serve layer's competing flushers).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from dataclasses import astuple, dataclass
 from pathlib import Path
 
@@ -35,6 +38,7 @@ SOURCE = Path(__file__).parent / "csrc" / "aggregate.cu"
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
 launch_counts = {"masked_scaled_aggregate": 0,
                  "masked_scaled_aggregate_update": 0}
+_count_lock = threading.Lock()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
@@ -144,8 +148,15 @@ def _geometry_arg(g):
 
 
 def reset_launch_counts():
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _count_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
+
+
+def _count(name):
+    """One launch of ``name``'s kernel, counted under the lock."""
+    with _count_lock:
+        launch_counts[name] += 1
 
 
 def load():
@@ -243,7 +254,7 @@ def masked_scaled_aggregate(g, w, out_dtype=None, mask=None):
             _ptr(g), _DTYPE_CODES[g.dtype], _ptr(w), _ptr(mask), _ptr(out),
             _DTYPE_CODES[out_dtype], n, p, _geometry_arg(g), _stream())
     _raise_on(rc, "masked_scaled_aggregate")
-    launch_counts["masked_scaled_aggregate"] += 1
+    _count("masked_scaled_aggregate")
     return out
 
 
@@ -277,5 +288,5 @@ def masked_scaled_aggregate_update(g, w, eta, params=None, mask=None, *,
             _ptr(params), _DTYPE_CODES.get(getattr(params, "dtype", None), 0),
             _ptr(out), _DTYPE_CODES[out_dtype], n, p, _geometry_arg(g), _stream())
     _raise_on(rc, "masked_scaled_aggregate_update")
-    launch_counts["masked_scaled_aggregate_update"] += 1
+    _count("masked_scaled_aggregate_update")
     return out

@@ -1,1 +1,2 @@
-"""Launchers of the port: the step builders (prefill and serve so far)."""
+"""Launchers of the port: the LM step makers (prefill and decode,
+:mod:`.steps`) and the Study-service front end (:mod:`.serve`)."""

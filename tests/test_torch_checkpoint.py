@@ -5,9 +5,11 @@
   tensors back on the template's device and numpy leaves as numpy.
 - The member names are the JAX package's (``a/b/0``, NamedTuple field
   names), read from the same tree by both packages.
-- A structure or shape mismatch raises; a member whose dtype is not the
-  one the port writes (the JAX package's uint32 key words) raises,
-  naming the file, the leaf and the ROADMAP step that would read it.
+- A structure or shape mismatch raises. A member whose dtype is not the
+  one the port writes is cast to it when every value converts exactly
+  (the JAX package's uint32 key words into the port's int64 ones); a
+  lossy cast (a float into an int64 template, a word past int32) raises,
+  naming the file and the leaf.
 - A truncated npz and a corrupt member raise, naming the file and the
   leaf.
 - ``CheckpointManager`` keeps ``keep`` files; a temp file left behind
@@ -110,14 +112,24 @@ def test_structure_shape_and_dtype_mismatch_raise(tmp_path):
         restore_pytree(path, {"a": torch.ones(4),
                               "k": torch.zeros(2, dtype=torch.int64)})
     # The JAX package keeps PRNG key words as uint32, the port as int64:
-    # a checkpoint the JAX package wrote is refused, not misread.
+    # a checkpoint the JAX package wrote restores, each word exactly.
     jpath = str(tmp_path / "j.npz")
-    jckpt.save_pytree(jpath, {"a": jnp.ones(3),
-                              "k": jnp.zeros(2, jnp.uint32)})
+    words = np.array([0, 1, 2 ** 31, 2 ** 32 - 1], np.uint32)
+    jckpt.save_pytree(jpath, {"a": jnp.ones(3), "k": jnp.asarray(words)})
+    got = restore_pytree(jpath, {"a": torch.ones(3),
+                                 "k": torch.zeros(4, dtype=torch.int64)})
+    assert got["k"].dtype == torch.int64
+    assert got["k"].tolist() == words.tolist()
+    # A lossy cast still raises, naming the file and the leaf: the words
+    # do not fit int32, and a float leaf does not go into an int64 one.
     with pytest.raises(ValueError, match=r"j\.npz: dtype mismatch for 'k'"
-                                         r".*step 4"):
+                                         r".*do not fit int32"):
         restore_pytree(jpath, {"a": torch.ones(3),
-                               "k": torch.zeros(2, dtype=torch.int64)})
+                               "k": torch.zeros(4, dtype=torch.int32)})
+    with pytest.raises(ValueError, match=r"j\.npz: dtype mismatch for 'a'"
+                                         r".*float32 does not cast exactly"):
+        restore_pytree(jpath, {"a": torch.zeros(3, dtype=torch.int64),
+                               "k": torch.zeros(4, dtype=torch.int64)})
 
 
 def test_truncated_and_corrupt_files_name_file_and_leaf(tmp_path):

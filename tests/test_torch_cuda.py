@@ -28,7 +28,10 @@ equals a standalone ``ClientSimulator.run`` bit for bit. Faults on the
 card: every row NaN-poisoned and dropped leaves the params unmoved and
 finite through the masked K2 and K1; a rate-0 fault equals the clean
 cell bit for bit; a checkpointed study, resumed from a middle
-checkpoint, equals the uninterrupted one bit for bit.
+checkpoint, equals the uninterrupted one bit for bit. The Study service
+on the card: a mixed-population batch counts one compile and one K2
+launch a step of every cell and seed, and each response (plain and
+checkpointed) equals its solo ``Study.run`` bit for bit.
 
 K4 (the gated-linear-recurrence scan) against its plain sequential
 version on the same inputs: ``max|K4 − plain| ≤ 1e-4·max|plain|``, as in
@@ -440,6 +443,47 @@ def test_resumed_k2_study_on_card_is_bitwise(card, tmp_path):
                              other[name].diverged)]
             for x, y in zip(a, b):
                 assert x.device.type == "cuda" and torch.equal(x, y), name
+
+
+def test_service_dispatch_through_k2_on_card(card, tmp_path):
+    """The Study service on the card: a mixed-population batch of one
+    structure is one dispatch and one compile, K2 launches once a step
+    of every cell and seed, each response equals its solo Study.run bit
+    for bit, repeat traffic compiles nothing, and a checkpointed
+    dispatch equals the plain one."""
+    from repro_torch.experiments import ExecutionConfig, Study
+    from repro_torch.serve import StudyService
+
+    n, steps, pops = 8, 12, (3, 5, 8)
+    _, kw = _quadratic_on(card, n)
+    w0 = torch.full((8,), 5.0, device=card)
+    svc = StudyService(optimizer=sgd(0.01), params0=w0, device=card,
+                       checkpoint_root=str(tmp_path), **kw)
+    studies = [Study(f"s{i}", num_steps=steps).axis("scheduler", "alg1")
+               .axis("arrivals", "periodic").axis("n_clients", m)
+               .axis("seeds", [0, 1]) for i, m in enumerate(pops)]
+    ops.reset_launch_counts()
+    rids = [svc.submit(s.to_json()) for s in studies]
+    responses = svc.flush()
+    assert all(r.error is None for r in responses)
+    assert ops.launch_counts == {
+        "masked_scaled_aggregate": 0,
+        "masked_scaled_aggregate_update": len(pops) * 2 * steps}
+    assert svc.stats()["compiles"] == 1
+    ck = [svc.submit(s.to_json(), ExecutionConfig(checkpoint_every=5))
+          for s in studies]
+    svc.flush()
+    for rid, ck_rid, study in zip(rids, ck, studies):
+        alone = study.run(optimizer=sgd(0.01), params0=w0, device=card, **kw)
+        for got in (svc.result(rid).result, svc.result(ck_rid).result):
+            for name in alone.cells:
+                a, b = alone.cells[name], got.cells[name]
+                for x, y in zip((a.params, *a.history, a.diverged),
+                                (b.params, *b.history, b.diverged)):
+                    assert x.device.type == "cuda" and torch.equal(x, y)
+    for s in studies:
+        svc.submit(s.to_json())
+    assert svc.flush()[0].batch["new_compiles"] == 0
 
 
 K3_CASES = [  # (B, H, Hkv, S, T, Dh), causal, window, dtype

@@ -277,8 +277,14 @@ def test_refusals_name_their_roadmap_step(prob):
     kw = dict(sim=sim, params0=torch.from_numpy(W0), num_steps=T, seeds=1)
     with pytest.raises(NotImplementedError, match="step 7"):
         TE.execute_cells(cells, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="step 4"):
-        TE.execute_cells(cells, executable_cache=object(), **kw)
+    # The executable cache is ported: the engine asks it for the group's
+    # runner before any step runs.
+    class Probe:
+        def group_runner(self, key, **_):
+            raise LookupError(key)
+
+    with pytest.raises(LookupError):
+        TE.execute_cells(cells, executable_cache=Probe(), **kw)
     # Faults are ported: an unknown family raises JAX's ValueError before
     # any step, on either path and through the axis; a registered one runs.
     faulty = [TE.Scenario(name="f", scheduler="alg1", arrivals="periodic",

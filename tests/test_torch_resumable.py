@@ -238,13 +238,19 @@ def test_finished_directory_replays_without_advancing(tmp_path):
 def test_fingerprint_mismatch_and_unported_options_refuse(tsim, tmp_path):
     kw = dict(sim=tsim, num_steps=STEPS, seeds=2,
               checkpoint_dir=str(tmp_path / "ck"))
-    TE.execute_cells_resumable(_scenarios(TE), params0=_w0(TE), **kw)
+    first = TE.execute_cells_resumable(_scenarios(TE), params0=_w0(TE), **kw)
     with pytest.raises(ValueError, match="fingerprint"):
         TE.execute_cells_resumable(_scenarios(TE), params0=_w0(TE) + 1.0,
                                    **kw)
-    with pytest.raises(NotImplementedError, match="step 4"):
-        TE.execute_cells_resumable(_scenarios(TE), params0=_w0(TE),
-                                   executable_cache=object(), **kw)
+    # The executable cache is ported: a finished directory replays
+    # through it, bit for bit and without running a chunk.
+    from repro_torch.serve import ExecutableCache
+
+    cache = ExecutableCache()
+    again = TE.execute_cells_resumable(_scenarios(TE), params0=_w0(TE),
+                                       executable_cache=cache, **kw)
+    _assert_bitwise(again, first)
+    assert cache.stats()["compiles"] == 0
 
 
 def test_study_checkpointed_run(tsim, tmp_path):

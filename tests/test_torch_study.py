@@ -29,11 +29,12 @@ Against the JAX package, on the same inputs:
   short grid through the port's ``get_study("fig1")`` and writes its CSV.
 
 And inside the port: ``Study.simulator`` memoizes and is bounded at
-``SIM_CACHE_SIZE``; the refused parts (mesh, manifests) raise
-``NotImplementedError`` naming their ROADMAP step, ``checkpoint_dir``
-runs and equals the unchunked study bit for bit, and with a mesh it
-raises JAX's ``ValueError``; with no card and no ``device=``, the
-study, the examples and the bench raise.
+``SIM_CACHE_SIZE``; the refused part (mesh) raises
+``NotImplementedError`` naming its ROADMAP step, manifests round-trip,
+``checkpoint_dir`` runs and equals the unchunked study bit for bit, and
+with a mesh it raises JAX's ``ValueError``; with no card and no
+``device=``, the study, the examples, the benches and the serve launcher
+raise.
 """
 
 import csv
@@ -269,13 +270,17 @@ def test_refusals_name_their_roadmap_step(problems, tmp_path):
     with pytest.raises(ValueError, match=r"incompatible with \['mesh'\]"):
         study.run(config=TE.ExecutionConfig(
             checkpoint_dir=str(tmp_path / "m"), mesh=object()), **kw)
-    cfg = TE.ExecutionConfig()
-    for call in (cfg.to_manifest, cfg.to_json, study.to_manifest,
-                 study.to_json, lambda: TE.ExecutionConfig.from_manifest({}),
+    # Manifests are ported: the study and its config round-trip, and an
+    # envelope without a format is refused by its decoder.
+    cfg = TE.ExecutionConfig(checkpoint_every=5)
+    assert TE.ExecutionConfig.from_json(cfg.to_json()) == cfg
+    assert TE.Study.from_json(study.to_json()).to_manifest() == \
+        study.to_manifest()
+    for call in (lambda: TE.ExecutionConfig.from_manifest({}),
                  lambda: TE.ExecutionConfig.from_json("{}"),
                  lambda: TE.Study.from_manifest({}),
                  lambda: TE.Study.from_json("{}")):
-        with pytest.raises(NotImplementedError, match="step 4"):
+        with pytest.raises(ValueError, match="unsupported format None"):
             call()
 
 
@@ -295,7 +300,10 @@ def test_no_card_and_no_device_raises(problems, monkeypatch, tmp_path):
     for rel, argv in (("examples_torch/quickstart.py", []),
                       ("examples_torch/paper_cifar.py",
                        ["--out", str(tmp_path / "x.csv")]),
-                      ("benchmarks_torch/theory.py", [])):
+                      ("benchmarks_torch/theory.py", []),
+                      ("examples_torch/serve_batch.py", []),
+                      ("benchmarks_torch/serve_bench.py", ["--fast"]),
+                      ("src/repro_torch/launch/serve.py", ["--demo"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             _load(rel).main(argv)
     assert not (tmp_path / "x.csv").exists()
