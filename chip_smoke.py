@@ -144,14 +144,35 @@ without printing its result line:
    reference prefill of those 448 tokens by the same rule, and 64
    greedy steps. ``torch.profiler`` over one prefill and one decode
    step, and the peak device memory.
-11. Prints the ``kernels`` JSON line (K1 and K2 also carry the engine,
+11. Train phase, on the LM phase's weights: the driver
+   (``repro_torch.launch.train.main``) at stablelm-1.6b full width, remat
+   on, B = 16 x S = 1,024 over 8 clients, alg1 on periodic arrivals,
+   adamw 1e-4: one warm-up step, 6 timed (host clock after a
+   synchronise; median and spread), one under ``torch.profiler``. Prints
+   ms a step, tokens/s, the model FLOP a step and their share of the
+   dense bf16 peak (``mfu``), the losses (finite, the last below the
+   first), active clients and the weight sum a step, and the peak
+   device memory. Then, with deterministic algorithms: one adamw step
+   where alg1 masks a client, run again with that client's tokens
+   replaced, must give the same update bit for bit; the flat SGD route
+   (``build_energy_train_step(flat=True, use_kernel=True)``, sgd 0.05)
+   3 steps, K2's count set to 0 before and 3 after, against the same
+   steps through K2's plain version; K2 timed alone at that one-row
+   shape (P = 1,644,883,968 bf16) beside ``torch.add``; and, at full
+   width cut to 2 layers, a straight 8-step driver run against one
+   halted at step 4 (``--halt-at``) and resumed in a child process (this
+   script with ``--train-child``): losses and final params bitwise.
+12. Prints the ``kernels`` JSON line (K1 and K2 also carry the engine,
    faults and serve phases' counts, ``engine_launches``,
-   ``faults_launches`` and ``serve_launches``), then the result line.
+   ``faults_launches`` and ``serve_launches``; K2 the train phase's,
+   ``train_launches``, and its time at that shape, ``train_shape``),
+   then the result line.
 
 Tolerances: f32 aggregate kernels against the plain versions
 rtol=atol=1e-6 (the client sum runs in another order; weights at the
 trainer's scale, Σω≈1); bf16 gradients into f32 1e-5; a bf16 result
-within one bf16 rounding step (relative 2**-8). K3 in bf16:
+within one bf16 rounding step (relative 2**-8), as the flat SGD
+route's bf16 params through K2 against its plain version. K3 in bf16:
 max|K3 − plain_f32| ≤ 2**-7 · max|plain_f32| (two bf16 roundings: p for
 the tensor-core product, and the output); K3 in f32 rtol=atol=1e-5.
 K4 (f32 arithmetic on any mix of f32 and bf16 inputs, the same inputs
@@ -174,6 +195,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
+# cuBLAS takes its workspace setting when CUDA starts: the train phase's
+# deterministic checks need a fixed one.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 SOURCE = "src/repro_torch/kernels/aggregate/csrc/aggregate.cu"
 K3_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 K4_SOURCE = "src/repro_torch/kernels/ssm_scan/csrc/gla_scan.cu"
@@ -215,6 +239,18 @@ TIMED_LAUNCHES = 60
 LM_BATCH, LM_SEQ, LM_PREFILLS = 8, 2048, 3
 LM_PROMPT, LM_CACHE, LM_GREEDY = 448, 512, 64
 LM_PARAMS = 1_644_883_968
+# Train phase: the driver at full width (clients, global batch, sequence
+# length, warm-up and timed steps, then one profiled step), the flat SGD
+# route's steps and lr, and the resume check (layers, steps, halt).
+TRAIN_CLIENTS, TRAIN_BATCH, TRAIN_SEQ = 8, 16, 1024
+# adamw at 1e-4, not the driver's default 3e-4: Adam's first steps move
+# every weight by about lr (lr x sign(g)), and at d_model 2,048 without
+# warm-up 3e-4 throws the loss up to 16.5 within 8 steps from 12.1
+# (benchmarks_torch/train_lr.py on the card).
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_LR = 1, 6, 1e-4
+FLAT_STEPS, FLAT_LR = 3, 0.05
+RESUME_LAYERS, RESUME_STEPS, RESUME_HALT = 2, 8, 4
+K2_TRAIN_LAUNCHES = 10
 # Peak rates of the H100 SXM (NVIDIA data sheet): HBM bytes/s, f32
 # (non-tensor-core) flop/s, dense bf16 and dense TF32 tensor-core flop/s.
 # torch names that card "NVIDIA H100 80GB HBM3".
@@ -281,6 +317,13 @@ def profile(torch, label, unit, fn, n_units, keep=None, top=8):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    profile_report(torch, label, unit, prof, wall_us, n_units, keep, top)
+
+
+def profile_report(torch, label, unit, prof, wall_us, n_units, keep=None,
+                   top=8):
+    """The lines of :func:`profile` for a finished profiler ``prof`` that
+    covered ``wall_us`` of wall time."""
     # Kernel rows only: an operator's row repeats its kernels' time.
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
@@ -1615,7 +1658,329 @@ def lm_phase(torch, rt, fa_ops):
                 lambda: serve(params, tok, states, LM_PROMPT + LM_GREEDY - 1), 1)
     peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"lm phase: peak device memory {peak:.2f} GB")
-    return launches
+    return launches, params
+
+
+def train_argv(steps, *extra):
+    """The driver's arguments in the train phase: full width, alg1 on
+    periodic arrivals, adamw, every step logged."""
+    return ["--arch", "stablelm-1.6b", "--steps", str(steps),
+            "--global-batch", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+            "--n-clients", str(TRAIN_CLIENTS), "--scheduler", "alg1",
+            "--arrivals", "periodic", "--lr", str(TRAIN_LR),
+            "--log-every", "1", "--device", DEVICE, *extra]
+
+
+def deterministic(torch, on):
+    """Deterministic algorithms (the embedding's and the CE's scatter
+    backward included) and cuDNN; cuBLAS's workspace is fixed by
+    ``CUBLAS_WORKSPACE_CONFIG``, set before CUDA starts."""
+    torch.use_deterministic_algorithms(on)
+    torch.backends.cudnn.deterministic = on
+
+
+def resume_cfg(rt):
+    """stablelm-1.6b at full width cut to RESUME_LAYERS layers."""
+    return rt.configs.get_config("stablelm-1.6b").replace(
+        n_layers=RESUME_LAYERS)
+
+
+def train_child(ckdir):
+    """The resume check's second leg, in a process of its own: resume the
+    run halted in ``ckdir`` to its end, deterministic, and write its
+    losses to ``ckdir/losses.json``."""
+    import torch
+
+    rt = load_port()
+    from repro_torch.launch import train as train_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    deterministic(torch, True)
+    losses = train_mod.main(
+        train_argv(RESUME_STEPS, "--checkpoint-dir", ckdir, "--resume"),
+        cfg=resume_cfg(rt))
+    with open(os.path.join(ckdir, "losses.json"), "w") as f:
+        json.dump(losses, f)
+    return 0
+
+
+def train_phase(torch, rt, params, ops, ref, peaks, card):
+    """Energy-weighted LM training at stablelm-1.6b full width through
+    the driver (``repro_torch.launch.train.main``) on the LM phase's
+    weights; a masked client's tokens change nothing; the flat SGD route
+    through K2 against its plain version, and K2 timed at that shape; a
+    2-layer run halted, resumed in a child process, bit for bit."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.checkpoint import restore_pytree
+    from repro_torch.core.trainer import build_energy_train_step
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer
+
+    phase_t0 = time.perf_counter()
+    k2 = "masked_scaled_aggregate_update"
+    cfg = rt.configs.get_config("stablelm-1.6b")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # Model FLOP a step: 2 a multiply-add, forward and backward (x3), over
+    # the matmul weights (q, k, v, o, the gated MLP, the LM head), plus
+    # the two S x S attention products the plain path computes in full.
+    d, hd = cfg.d_model, cfg.n_heads * cfg.resolved_head_dim
+    kvd = cfg.n_kv_heads * cfg.resolved_head_dim
+    matmul_params = (cfg.n_layers * (2 * d * hd + 2 * d * kvd + 3 * d * cfg.d_ff)
+                     + d * cfg.vocab)
+    flops = (6 * matmul_params * tokens
+             + 12 * cfg.n_layers * TRAIN_SEQ * hd * tokens)
+    bound_s = flops / peaks[2]
+
+    # The main path: the driver's own run, one warm-up step, the timed
+    # steps, then one step under the profiler.
+    last = TRAIN_WARMUP + TRAIN_TIMED - 1
+    stamps, active, wsum = [], [], []
+    act = torch.profiler.ProfilerActivity
+    prof = torch.profiler.profile(activities=[act.CPU, act.CUDA])
+
+    def on_step(step, state, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        active.append(int(metrics["active_clients"].item()))
+        wsum.append(metrics["weight_sum"].item())
+        if step == last:
+            prof.start()
+        elif step == last + 1:
+            prof.stop()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses = train_mod.main(train_argv(last + 2), params=params,
+                            on_step=on_step)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = [(stamps[k] - stamps[k - 1]) * 1e3 for k in range(TRAIN_WARMUP, last + 1)]
+    med = sorted(ms)[len(ms) // 2] if len(ms) % 2 else \
+        sum(sorted(ms)[len(ms) // 2 - 1:len(ms) // 2 + 1]) / 2
+    check(all(math.isfinite(x) for x in losses + wsum),
+          f"train: a loss or weight sum is not finite: {losses} {wsum}")
+    check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+    mfu = flops / (med / 1e3) / peaks[2]
+    print(f"train run: {cfg.name} at full width ({cfg.n_layers} layers, "
+          f"d_model {d}, {cfg.n_heads} heads of {cfg.resolved_head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, bf16, remat "
+          f"{cfg.remat_policy if cfg.remat else 'off'}) through "
+          f"repro_torch.launch.train.main, B={TRAIN_BATCH} x S={TRAIN_SEQ} "
+          f"({tokens:,} tokens a step), {TRAIN_CLIENTS} clients, alg1 on "
+          f"periodic arrivals, adamw {TRAIN_LR}: {TRAIN_WARMUP} warm-up step, "
+          f"{TRAIN_TIMED} timed: median {med:.1f} ms/step (spread "
+          f"{min(ms):.1f}..{max(ms):.1f}), {tokens / med * 1e3:,.0f} tokens/s; "
+          f"model FLOP a step {flops:.4g} ({matmul_params:,} matmul weights), "
+          f"mfu {mfu:.3f} of {peaks[2] / 1e12:.0f} TFLOP/s dense bf16 (that "
+          f"peak's bound: {bound_s * 1e3:.1f} ms/step); peak device memory "
+          f"{peak:.2f} GB [{card}]")
+    print(f"train losses: {[round(x, 4) for x in losses]}; active clients "
+          f"{active}; weight sums {[round(x, 3) for x in wsum]}")
+    wall_us = (stamps[last + 1] - stamps[last]) * 1e6
+    profile_report(torch, "train step", "step", prof, wall_us, 1)
+    del prof
+
+    # Scheduler decisions of alg1 on periodic arrivals: the first with
+    # a masked client beside an active one, and FLAT_STEPS with an active
+    # client; batches from the driver's token stream.
+    deterministic(torch, True)
+    sched, energy = rt.experiments.build_components(
+        scheduler="alg1", arrivals="periodic", n_clients=TRAIN_CLIENTS,
+        horizon=64)
+    energy = energy.to(DEVICE)
+    key = rt.random.PRNGKey(1, device=DEVICE)
+    k_sched, k_energy, k_draw = rt.random.split(key, 3)
+    sstate, estate = sched.init(k_sched), energy.init(k_energy)
+    masked, decisions = None, []
+    for t in range(63):
+        k_arr, k_dec = rt.random.split(rt.random.fold_in(k_draw, t))
+        estate, arr = energy.arrivals(estate, t, k_arr)
+        sstate, dec = sched.step(sstate, t, k_dec, arr)
+        n_on = int(dec.mask.sum().item())
+        if n_on and len(decisions) < FLAT_STEPS:
+            decisions.append((dec.mask, dec.scale))
+        if masked is None and 0 < n_on < TRAIN_CLIENTS:
+            masked = (dec.mask, dec.scale)
+        if masked is not None and len(decisions) == FLAT_STEPS:
+            break
+    check(masked is not None and len(decisions) == FLAT_STEPS,
+          "train: alg1 gave no step with a masked and an active client")
+    lm = rt.data.make_lm_tokens(0, 512, TRAIN_SEQ, cfg.vocab)
+    batcher = rt.data.GlobalBatcher({"raw": lm.tokens}, TRAIN_CLIENTS,
+                                    TRAIN_BATCH, device=DEVICE)
+
+    def lm_batch(raw, ids):
+        return {"tokens": raw[:, :-1], "labels": raw[:, 1:], "client_ids": ids}
+
+    mask, scale = masked
+    client = int((mask == 0).nonzero()[0])
+    drawn = batcher.sample(rt.random.fold_in(k_draw, 1000))
+    raw, ids = drawn["raw"], drawn["client_ids"]
+    other = raw.clone()
+    rows = ids == client
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    other[rows] = torch.randint(0, cfg.vocab, other[rows].shape, device=DEVICE,
+                                dtype=other.dtype, generator=gen)
+    check(not torch.equal(other, raw), "train: the replaced tokens are the same")
+    init_state, step = make_train_step(cfg, TRAIN_CLIENTS,
+                                       optimizer=rt.optim.adamw(TRAIN_LR))
+    kept = None
+    t0 = time.perf_counter()
+    for toks in (raw, other):
+        state, metrics = step(init_state(params), lm_batch(toks, ids), mask,
+                              scale)
+        got = (state.params, state.opt_state.mu)
+        del state
+        if kept is None:
+            kept, first_loss = got, metrics["loss"].item()
+    same = all(torch.equal(a, b)
+               for a, b in zip(tree_leaves(kept), tree_leaves(got)))
+    changed_loss = metrics["loss"].item()
+    del kept, got
+    torch.cuda.synchronize()
+    check(same, f"train: client {client} is masked, yet its tokens changed "
+          f"the update")
+    print(f"train masked client: mask {mask.tolist()}, client {client}'s "
+          f"{int(rows.sum())} sequences replaced by other random tokens "
+          f"(mean loss {first_loss:.4f} -> {changed_loss:.4f}): the adamw "
+          f"update (params and first moment) bitwise the same, deterministic "
+          f"algorithms on; 2 steps in {time.perf_counter() - t0:.1f} s")
+
+    # The flat SGD route: one K2 launch a step at P = LM_PARAMS, bf16,
+    # against the same steps through K2's plain version.
+    batches = [lm_batch(b["raw"], b["client_ids"])
+               for b in (batcher.sample(rt.random.fold_in(k_draw, 2000 + i))
+                         for i in range(FLAT_STEPS))]
+
+    def loss_fn(p, b):
+        return transformer.per_example_loss(p, cfg, b)
+
+    finals, walls = {}, {}
+    for use_kernel in (True, False):
+        init, flat_step = build_energy_train_step(
+            per_example_loss_fn=loss_fn, optimizer=rt.optim.sgd(FLAT_LR),
+            n_clients=TRAIN_CLIENTS, flat=True, use_kernel=use_kernel)
+        state = init(params)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b, (m, sc) in zip(batches, decisions):
+            state, metrics = flat_step(state, b, m, sc)
+            check(math.isfinite(metrics["loss"].item()),
+                  "train flat sgd: loss not finite")
+        torch.cuda.synchronize()
+        walls[use_kernel] = time.perf_counter() - t0
+        finals[use_kernel] = (state.params, ops.launch_counts[k2])
+        del state
+    flat_launches = finals[True][1]
+    check(flat_launches == FLAT_STEPS and finals[False][1] == 0,
+          f"train flat sgd: {flat_launches} K2 launches in {FLAT_STEPS} steps "
+          f"(plain route {finals[False][1]})")
+    err, differ, n_el = 0.0, 0, 0
+    for a, b in zip(tree_leaves(finals[True][0]), tree_leaves(finals[False][0])):
+        torch.testing.assert_close(a.float(), b.float(), rtol=2 ** -8, atol=1e-6)
+        err = max(err, (a.float() - b.float()).abs().max().item())
+        differ += int((a != b).sum().item())
+        n_el += a.numel()
+    del finals
+    print(f"train flat sgd: build_energy_train_step(flat=True, use_kernel=True)"
+          f", sgd({FLAT_LR}), {FLAT_STEPS} steps at P = {n_el:,} bf16: "
+          f"{flat_launches} K2 launches ({walls[True]:.2f} s); against K2's "
+          f"plain version ({walls[False]:.2f} s) max abs diff {err:.3g}, "
+          f"{differ} of {n_el:,} params differ (gate: one bf16 rounding "
+          f"step) [{card}]")
+    torch.cuda.empty_cache()
+
+    # K2 alone at the route's shape: a one-row (1, P) bf16 stack.
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    g = torch.randn(1, n_el, device=DEVICE, dtype=torch.bfloat16, generator=gen)
+    pp = torch.randn(n_el, device=DEVICE, dtype=torch.bfloat16, generator=gen)
+    w = torch.ones(1, device=DEVICE)
+    eta = torch.tensor(FLAT_LR, device=DEVICE)
+    k2_err = (ops.masked_scaled_aggregate_update(g, w, eta, pp).float()
+              - ref.masked_scaled_aggregate_update_ref(g, w, eta, pp).float()
+              ).abs().max().item()
+    check(k2_err <= 2 ** -8 * pp.float().abs().max().item(),
+          f"K2 at the one-row shape: {k2_err} from its plain version")
+    flush = flush_buffer(torch)
+    fns = (lambda: ops.masked_scaled_aggregate_update(g, w, eta, pp),
+           lambda: ref.masked_scaled_aggregate_update_ref(g, w, eta, pp),
+           lambda: torch.add(pp, g[0], alpha=-FLAT_LR))
+    t = [time_ms(torch, fn, flush, n=K2_TRAIN_LAUNCHES) for fn in fns]
+    nbytes, nflops = 2 * 3 * n_el + 8, 4 * n_el
+    bound_b, bound_f = nbytes / peaks[0] * 1e3, nflops / peaks[1] * 1e3
+    k2_train = {"shape": f"N=1 P={n_el} bf16", "ms": t[0][0],
+                "warm_ms": t[0][1], "plain_ms": t[1][0],
+                "plain_warm_ms": t[1][1], "library_ms": t[2][0],
+                "library_warm_ms": t[2][1], "bound_ms": max(bound_b, bound_f),
+                "bound_by": "bytes" if bound_b >= bound_f else "operations",
+                "max_abs_err": k2_err}
+    print(f"time k2 one-row train shape (N=1, P={n_el:,}, bf16; L2 flushed | "
+          f"warm, ms): kernel {t[0][0]:.4f} | {t[0][1]:.4f}, plain "
+          f"{t[1][0]:.4f} | {t[1][1]:.4f}, torch.add {t[2][0]:.4f} | "
+          f"{t[2][1]:.4f}, bound {k2_train['bound_ms']:.4f} "
+          f"({nbytes / 1e9:.2f} GB; {nbytes / t[0][0] / 1e6:.0f} GB/s "
+          f"achieved flushed) [{card}]")
+    del g, pp, flush
+    torch.cuda.empty_cache()
+
+    # Resume: a straight run against one halted and resumed in a child
+    # process, deterministic, at full width cut to RESUME_LAYERS layers.
+    cfg2 = resume_cfg(rt)
+    final, stamp = {}, {}
+
+    def keep_last(step, state, metrics):
+        if step == RESUME_STEPS - 1:
+            final["params"] = state.params
+
+    def at_halt(step, state, metrics):
+        torch.cuda.synchronize()
+        stamp["t"] = time.perf_counter()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        straight = train_mod.main(train_argv(RESUME_STEPS), cfg=cfg2,
+                                  on_step=keep_last)
+        straight_s = time.perf_counter() - t0
+        ckdir = os.path.join(tmp, "halted")
+        halted = train_mod.main(
+            train_argv(RESUME_STEPS, "--checkpoint-dir", ckdir, "--halt-at",
+                       str(RESUME_HALT)), cfg=cfg2, on_step=at_halt)
+        write_ms = (time.perf_counter() - stamp["t"]) * 1e3
+        mb = os.path.getsize(os.path.join(ckdir, f"step_{RESUME_HALT}.npz")) / 1e6
+        # The child shares the card: hand it the memory this process
+        # holds cached.
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--train-child",
+             ckdir], capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        check(child.returncode == 0, f"train resume: the child exited "
+              f"{child.returncode}:\n{child.stdout[-3000:]}{child.stderr[-3000:]}")
+        with open(os.path.join(ckdir, "losses.json")) as f:
+            resumed = json.load(f)
+        restored = restore_pytree(
+            os.path.join(ckdir, f"step_{RESUME_STEPS}.npz"),
+            {"state": {"params": final["params"]}})["state"]["params"]
+    same = all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(restored), tree_leaves(final["params"])))
+    check(halted == straight[:RESUME_HALT] and resumed == straight[RESUME_HALT:],
+          f"train resume: losses {halted} + {resumed} against {straight}")
+    check(same, "train resume: the resumed run's final params differ from "
+          "the straight run's")
+    deterministic(torch, False)
+    del restored, final
+    print(f"train resume: {cfg2.name} at full width cut to {RESUME_LAYERS} "
+          f"layers, deterministic: a straight {RESUME_STEPS}-step run "
+          f"({straight_s:.1f} s) against one halted at {RESUME_HALT} "
+          f"(checkpoint {mb:.1f} MB, written in {write_ms:.0f} ms from the "
+          f"card: device to host, npz, fsync, rename) and resumed in a child "
+          f"process ({child_s:.1f} s): loss streams and final params bitwise "
+          f"equal; the phase took {time.perf_counter() - phase_t0:.1f} s "
+          f"[{card}]")
+    torch.cuda.empty_cache()
+    return {"flat_sgd": flat_launches}, k2_train
 
 
 def load_port():
@@ -1646,6 +2011,8 @@ def main():
         return resume_child(sys.argv[2])
     if sys.argv[1:2] == ["--serve-child"]:
         return serve_child(sys.argv[2])
+    if sys.argv[1:2] == ["--train-child"]:
+        return train_child(sys.argv[2])
     rt = load_port()
     from repro_torch.kernels import _build
     from repro_torch.kernels.aggregate import ops, ref
@@ -1696,7 +2063,10 @@ def main():
     k3_err, k3_timing = k3_phase(torch, fa_ops, fa_ref, peaks, sm_clock_hz)
     launches["gla_scan"], k4_err, k4_timing = k4_phase(
         torch, ssm_ops, ssm_ref, chunked_gla, peaks)
-    launches["flash_attention"] = lm_phase(torch, rt, fa_ops)
+    launches["flash_attention"], lm_params = lm_phase(torch, rt, fa_ops)
+    train_counts, k2_train = train_phase(torch, rt, lm_params, ops, ref,
+                                         peaks, card)
+    del lm_params
 
     names = {"k1": ("masked_scaled_aggregate", SOURCE,
                     "src/repro/kernels/aggregate/aggregate.py:77"),
@@ -1727,6 +2097,11 @@ def main():
                 label: c[name] for label, c in fault_counts.items()}
             kernels[-1]["serve_launches"] = {
                 label: c[name] for label, c in serve_counts.items()}
+        if key == "k2":
+            # The train phase's flat SGD route: one launch a step on a
+            # one-row stack of the LM's P parameters, timed at that shape.
+            kernels[-1]["train_launches"] = train_counts
+            kernels[-1]["train_shape"] = k2_train
         if key == "k3":
             kernels[-1]["shapes"] = k3_timing
     # K4's main path is one scan at each of two shapes: its times and bound

@@ -6,9 +6,12 @@ tree of tensors, same structure, same layouts. :func:`carry_from_jax`
 does the same for a flat ``SimCarry``: params, optimizer state,
 scheduler state, energy state, key, step counter and fault state (``()``,
 a stale-update ring, or a tuple of them for a composite).
-:func:`fault_from_jax` turns a fault component into the port's. None
-imports JAX: state NamedTuples and fault families are matched to the
-port's by class name.
+:func:`train_state_from_jax` carries the SPMD LM train step's
+``TrainState`` (params, the Adam/momentum/SGD state, the step counter),
+whose key paths the port keeps, so a full-state driver checkpoint reads
+the same in both packages. :func:`fault_from_jax` turns a fault
+component into the port's. None imports JAX: state NamedTuples and
+fault families are matched to the port's by class name.
 """
 
 from __future__ import annotations
@@ -20,13 +23,14 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core import energy, faults, scheduling
-from repro_torch.core.trainer import SimCarry
+from repro_torch.core.trainer import SimCarry, TrainState
 from repro_torch.optim import optimizers
 
 _STATES = {cls.__name__: cls for cls in (
     optimizers.SGDState, optimizers.MomentumState, optimizers.AdamState,
     scheduling.AppointmentState, scheduling.WaitForAllState,
-    scheduling.BatteryState, energy.UniformArrivalsState, SimCarry)}
+    scheduling.BatteryState, energy.UniformArrivalsState, SimCarry,
+    TrainState)}
 
 
 def _tensor(x, device):
@@ -66,6 +70,13 @@ def params_from_jax(tree, device=None):
 def carry_from_jax(carry, device=None) -> SimCarry:
     """A flat JAX ``SimCarry`` → the port's :class:`SimCarry`."""
     return _convert(carry, resolve_device(device))
+
+
+def train_state_from_jax(state, device=None) -> TrainState:
+    """A JAX ``TrainState`` (numpy leaves) → the port's
+    :class:`~repro_torch.core.trainer.TrainState`, leaf for leaf (bf16
+    leaves bit for bit)."""
+    return _convert(state, resolve_device(device))
 
 
 _FAULTS = {cls.__name__: cls for cls in (

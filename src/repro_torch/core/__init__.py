@@ -5,7 +5,8 @@
 * :mod:`repro_torch.core.aggregation` — unbiased scaled aggregation (eq. 11/12)
 * :mod:`repro_torch.core.convergence` — Theorem 1 / Corollary 1 constants
 * :mod:`repro_torch.core.faults` — client fault injection (delivery faults)
-* :mod:`repro_torch.core.trainer` — the ClientSimulator
+* :mod:`repro_torch.core.trainer` — the ClientSimulator and the SPMD
+  LM train step (``build_energy_train_step``)
 """
 
 from repro_torch.core.energy import (
@@ -43,6 +44,7 @@ from repro_torch.core.aggregation import (
     compose_masks,
     fused_flat_sgd_update,
     make_flat_grads_fn,
+    per_example_coefficients,
     ravel_pytree,
     ravel_spec,
     ravel_stacked,
@@ -69,7 +71,13 @@ from repro_torch.core.faults import (
     pad_faults,
     register_fault_family,
 )
-from repro_torch.core.trainer import ClientSimulator, SimCarry, SimHistory
+from repro_torch.core.trainer import (
+    ClientSimulator,
+    SimCarry,
+    SimHistory,
+    TrainState,
+    build_energy_train_step,
+)
 
 __all__ = [
     "Arrivals", "BinaryArrivals", "DayNightArrivals", "DeterministicArrivals",
@@ -81,6 +89,7 @@ __all__ = [
     "make_scheduler", "mask_arrivals", "pad_scheduler", "register_scheduler",
     "scheduler_names",
     "RavelSpec", "aggregate_client_grads", "client_weights", "compose_masks",
+    "per_example_coefficients",
     "fused_flat_sgd_update", "make_flat_grads_fn", "ravel_pytree",
     "ravel_spec", "ravel_stacked", "reduce_flat", "unravel_pytree",
     "QuadraticProblem", "biased_fixed_point", "error_floor", "make_quadratic",
@@ -88,5 +97,6 @@ __all__ = [
     "CompositeFault", "CorruptGradients", "DropUpdates", "OfflineWindows",
     "StaleUpdates", "fault_family_names", "make_fault", "pad_faults",
     "register_fault_family",
-    "ClientSimulator", "SimCarry", "SimHistory",
+    "ClientSimulator", "SimCarry", "SimHistory", "TrainState",
+    "build_energy_train_step",
 ]

@@ -16,9 +16,13 @@ The flat layout is ``jax.tree_util``'s: leaves in sorted-key order
 (:mod:`repro_torch._tree`), each row-major. A flat buffer of the port is
 therefore the same vector as the JAX package's, element by element.
 
+:func:`per_example_coefficients` carries the same weighting into the
+SPMD LM train step (:func:`repro_torch.core.trainer.
+build_energy_train_step`), as a coefficient on each example's loss.
+
 The client-sharded half (``reduce_flat_client_sharded``,
 ``_cross_shard_sum``, the sharded branch of
-:func:`fused_flat_sgd_update`) waits for ROADMAP Queue 1 item 10.
+:func:`fused_flat_sgd_update`) waits for ROADMAP Queue 1 step 7.
 """
 
 from __future__ import annotations
@@ -228,7 +232,7 @@ def fused_flat_sgd_update(g: torch.Tensor, weights: torch.Tensor,
             f"(kind='sgd'); got kind={getattr(optimizer, 'kind', '')!r}")
     if shard is not None:
         raise NotImplementedError(
-            "client-sharded fused update: ROADMAP Queue 1 item 10")
+            "client-sharded fused update: ROADMAP Queue 1 step 7")
     eta = resolve_lr(optimizer.hyper, opt_state.step)
     new_state = SGDState(step=opt_state.step + 1)
     w32 = weights.to(torch.float32)
@@ -239,3 +243,29 @@ def fused_flat_sgd_update(g: torch.Tensor, weights: torch.Tensor,
         agg = reduce_flat(g, weights, out_dtype=torch.float32, mask=mask)
         new_params = (params.to(torch.float32) - eta * agg).to(params.dtype)
     return new_params, new_state, torch.sum(weights)
+
+
+def per_example_coefficients(client_ids: torch.Tensor, weights: torch.Tensor,
+                             examples_per_client) -> torch.Tensor:
+    """Per-example loss coefficients realizing the paper's update in SPMD.
+
+    If client i owns b_i examples of the batch and g_i is the *mean*
+    gradient over its examples, then
+
+        Σ_i ω_i g_i = Σ_i Σ_{j∈i} (ω_i / b_i) · ∇l_ij
+
+    so example j of client i gets coefficient ω_i / b_i, and the gradient
+    of ``sum(coeff * per_example_loss)`` is the paper's aggregated update.
+
+    client_ids : (B,) int — owning client of each example.
+    weights    : (N,) float32 — ω_i.
+    examples_per_client : scalar or (N,) — b_i (a per-client b_i below 1
+        is taken as 1).
+    """
+    b = torch.as_tensor(examples_per_client, dtype=torch.float32,
+                        device=weights.device)
+    if b.dim() == 0:
+        per_client = weights / b
+    else:
+        per_client = weights / torch.clamp(b, min=1.0)
+    return per_client[client_ids.long()]

@@ -25,23 +25,29 @@ exact zero even when its payload is NaN. The fault key is
 ``fold_in(k_run, FAULT_SALT)``, so a run without faults draws the bits
 it drew before, and ``faults=None`` adds no work to a step.
 
+:func:`build_energy_train_step` is the SPMD train step of the LM path
+(``repro_torch.launch.train``): one global batch whose examples belong
+to clients, the paper's weighting as a coefficient on each example's
+loss (:func:`~repro_torch.core.aggregation.per_example_coefficients`),
+gradients by ``torch.autograd``.
+
 Not ported yet: the legacy per-leaf carry (``flat=False``, and
 mixed-dtype parameters; ROADMAP Queue 1 step 5), refused with
-``NotImplementedError``; client-axis sharding (step 7);
-``build_energy_train_step``, the SPMD path of the LM zoo (step 8).
+``NotImplementedError``; client-axis sharding (step 7).
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
 from repro_torch import random as trandom
 from repro_torch._device import resolve_device
-from repro_torch._tree import tree_map
+from repro_torch._tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from repro_torch.core import aggregation
 from repro_torch.core.faults import FAULT_SALT
+from repro_torch.core.scheduling import Decision
 from repro_torch.optim import Optimizer, apply_updates
 
 
@@ -306,3 +312,127 @@ class ClientSimulator:
                                   self._f32(p), self._f32(active_mask),
                                   faults)
         return carry, self._history(outs)
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt_state: Any
+    step: torch.Tensor
+
+
+def build_energy_train_step(
+    *,
+    per_example_loss_fn: Callable[..., Any],
+    optimizer: Optimizer,
+    n_clients: int,
+    p=None,
+    aux_loss_weight: float = 0.0,
+    flat: bool = False,
+    use_kernel: bool = False,
+):
+    """SPMD train step with the paper's weighting baked into the loss.
+
+    per_example_loss_fn(params, batch) must return per-example losses of
+    shape (B,) — or (B,), aux_scalar when the model carries an auxiliary
+    loss. ``batch`` must contain ``client_ids`` (B,) int. The returned
+    step:
+
+        train_step(state, batch, mask, scale) -> (state, metrics)
+
+    where (mask, scale) are the (N,) scheduler outputs for this step, on
+    the batch's device. The aux loss is weighted by Σω so a masked
+    client contributes nothing to it either. Gradients come from
+    ``torch.autograd.grad`` over the parameter leaves, in their dtype.
+
+    ``flat=True`` ravels the gradient into one ``(P,)`` buffer, keeps
+    the optimizer state flat and rebuilds the tree only at
+    ``TrainState.params``; elementwise optimizers give the per-leaf
+    route's bits. With a tagged ``sgd()`` the flat step goes through
+    :func:`repro_torch.core.aggregation.fused_flat_sgd_update` as a
+    one-row stack with unit weight: one launch of kernel K2 when
+    ``use_kernel`` (its plain version for CPU tensors).
+    """
+    if p is None:
+        p = torch.full((n_clients,), 1.0 / n_clients, dtype=torch.float32)
+    p = torch.as_tensor(p, dtype=torch.float32)
+    placed = {}
+
+    def on(device):
+        if device not in placed:
+            placed[device] = p.to(device)
+        return placed[device]
+
+    def loss_fn(params, batch, weights):
+        out = per_example_loss_fn(params, batch)
+        aux = None
+        if isinstance(out, tuple):
+            losses, aux = out
+        else:
+            losses = out
+        bsz = losses.shape[0]
+        coeff = aggregation.per_example_coefficients(
+            batch["client_ids"], weights, bsz // n_clients)
+        total = torch.sum(coeff * losses)
+        if aux_loss_weight and aux is not None:
+            # Scale aux by the client weights so the energy mask also
+            # de-biases router statistics.
+            total = total + aux_loss_weight * aux * torch.sum(weights)
+        # Unweighted mean loss for logging.
+        return total, torch.mean(losses)
+
+    def train_step(state: TrainState, batch, mask, scale):
+        weights = aggregation.client_weights(on(mask.device),
+                                             Decision(mask=mask, scale=scale))
+        leaves, treedef = tree_flatten(state.params)
+        wrt = [leaf.detach().requires_grad_() for leaf in leaves]
+        with torch.enable_grad():
+            total, mean_loss = loss_fn(tree_unflatten(treedef, wrt), batch,
+                                       weights)
+            grads = torch.autograd.grad(total, wrt, materialize_grads=True)
+        with torch.no_grad():
+            grads = tree_unflatten(treedef, list(grads))
+            if flat:
+                spec = aggregation.ravel_spec(state.params)
+                gflat = aggregation.ravel_pytree(
+                    tree_map(lambda g: g.to(spec.dtype), grads), spec)
+                pflat = aggregation.ravel_pytree(state.params, spec)
+                if getattr(optimizer, "kind", "") == "sgd":
+                    # The SPMD gradient is already reduced over examples,
+                    # so the fused op sees a one-client stack with unit
+                    # weight: one reduce-and-update pass (one K2 launch
+                    # under use_kernel) replaces update+apply.
+                    pnew, opt_state, _ = aggregation.fused_flat_sgd_update(
+                        gflat[None, :],
+                        torch.ones((1,), dtype=torch.float32,
+                                   device=gflat.device),
+                        pflat, state.opt_state, optimizer,
+                        use_kernel=use_kernel)
+                    params = aggregation.unravel_pytree(pnew, spec)
+                else:
+                    updates, opt_state = optimizer.update(
+                        gflat, state.opt_state, pflat)
+                    params = aggregation.unravel_pytree(pflat + updates, spec)
+            else:
+                updates, opt_state = optimizer.update(grads, state.opt_state,
+                                                      state.params)
+                params = apply_updates(state.params, updates)
+            metrics = {
+                "weighted_loss": total.detach(),
+                "loss": mean_loss.detach(),
+                "active_clients": torch.sum(mask),
+                "weight_sum": torch.sum(weights),
+            }
+        return TrainState(params=params, opt_state=opt_state,
+                          step=state.step + 1), metrics
+
+    def init_state(params) -> TrainState:
+        if flat:
+            spec = aggregation.ravel_spec(params)
+            opt_state = optimizer.init(aggregation.ravel_pytree(params, spec))
+        else:
+            opt_state = optimizer.init(params)
+        device = tree_leaves(params)[0].device
+        return TrainState(params=params, opt_state=opt_state,
+                          step=torch.zeros((), dtype=torch.int32, device=device))
+
+    return init_state, train_step

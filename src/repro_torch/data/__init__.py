@@ -1,8 +1,12 @@
-"""Data of the port: the Fig-1 synthetic task, its partition, batching,
-and the synthetic token stream of the LM prompts."""
+"""Data of the port: the Fig-1 synthetic task, its partitions, batching
+(per client and global), and the synthetic token stream of the LM."""
 
-from repro_torch.data.loader import ClientBatcher
-from repro_torch.data.partition import group_label_skew_partition
+from repro_torch.data.loader import ClientBatcher, GlobalBatcher
+from repro_torch.data.partition import (
+    dirichlet_partition,
+    group_label_skew_partition,
+    iid_partition,
+)
 from repro_torch.data.synthetic import (
     SyntheticImageDataset,
     SyntheticLMDataset,
@@ -10,6 +14,7 @@ from repro_torch.data.synthetic import (
     make_lm_tokens,
 )
 
-__all__ = ["ClientBatcher", "group_label_skew_partition",
+__all__ = ["ClientBatcher", "GlobalBatcher", "dirichlet_partition",
+           "group_label_skew_partition", "iid_partition",
            "SyntheticImageDataset", "make_confusable_image_classification",
            "SyntheticLMDataset", "make_lm_tokens"]

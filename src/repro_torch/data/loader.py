@@ -1,5 +1,8 @@
-"""Per-client minibatch sampling on the device (port of
-``repro.data.loader.ClientBatcher``)."""
+"""Batching on the device (port of ``repro.data.loader``): per-client
+samplers for the simulator path (:class:`ClientBatcher`) and the global
+batcher of the SPMD LM train step (:class:`GlobalBatcher`). Indices are
+drawn with :func:`repro_torch.random.randint`, so a key gives the JAX
+package's batches."""
 
 from __future__ import annotations
 
@@ -58,3 +61,55 @@ class ClientBatcher:
         idx = trandom.randint(key, (self.n_clients, self.batch_size), 0,
                               self.shard_size).to(torch.int64)
         return {k: v[self._rows, idx] for k, v in self.data.items()}
+
+
+class GlobalBatcher:
+    """Global-batch sampler for the SPMD path.
+
+    The global batch of size B is laid out as ``n_clients`` contiguous
+    slots of B/N examples; ``client_ids`` (int32) marks ownership so the
+    train step can apply per-example energy coefficients. Without
+    ``client_index`` every client samples from the whole dataset (IID);
+    with it, client i samples from its own index list (short lists padded
+    by resampling from a numpy generator seeded 0, as the JAX package
+    does).
+    """
+
+    def __init__(self, data: dict, n_clients: int, global_batch: int,
+                 client_index: list[np.ndarray] | None = None, device=None):
+        if global_batch % n_clients != 0:
+            raise ValueError(f"global_batch {global_batch} % n_clients {n_clients} != 0")
+        self.device = resolve_device(device)
+        self.n_clients = n_clients
+        self.global_batch = global_batch
+        self.per_client = global_batch // n_clients
+        self.data = {k: torch.as_tensor(np.asarray(v)).to(self.device)
+                     for k, v in data.items()}
+        if client_index is None:
+            self._index = None
+            self._n = len(next(iter(data.values())))
+        else:
+            cap = max(len(ix) for ix in client_index)
+            rng = np.random.default_rng(0)
+            padded = []
+            for ix in client_index:
+                if len(ix) < cap:
+                    ix = np.concatenate([ix, rng.choice(ix, cap - len(ix))])
+                padded.append(ix)
+            self._index = torch.from_numpy(
+                np.stack(padded).astype(np.int64)).to(self.device)  # (N, cap)
+            self._n = cap
+        self.client_ids = torch.arange(
+            n_clients, dtype=torch.int32,
+            device=self.device).repeat_interleave(self.per_client)
+
+    def sample(self, key) -> dict:
+        """``{name: (B, ...)}`` plus ``client_ids``."""
+        idx = trandom.randint(key, (self.n_clients, self.per_client), 0,
+                              self._n).to(torch.int64)
+        if self._index is not None:
+            idx = torch.gather(self._index, 1, idx)
+        flat = idx.reshape(-1)
+        batch = {k: v[flat] for k, v in self.data.items()}
+        batch["client_ids"] = self.client_ids
+        return batch

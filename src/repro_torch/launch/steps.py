@@ -1,9 +1,10 @@
-"""Step-function builders: prefill and serve.
+"""Step-function builders: train / prefill / serve per architecture.
 
-Port of the serving half of ``repro.launch.steps``. The train steps
-come with the LM training slice (ROADMAP Queue 1 item 12). PyTorch runs
-eagerly, so a builder returns a plain function where the JAX package's
-is jitted by its caller.
+Port of ``repro.launch.steps``. The energy-harvesting weighting (paper
+eq. 11/12) enters ``train_step`` through the (mask, scale) scheduler
+outputs — see :func:`repro_torch.core.trainer.build_energy_train_step`.
+PyTorch runs eagerly, so a builder returns a plain function where the
+JAX package's is jitted by its caller.
 """
 
 from __future__ import annotations
@@ -11,8 +12,27 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.trainer import build_energy_train_step
 from repro_torch.models import transformer
 from repro_torch.models.blocks import NOT_PORTED
+from repro_torch.optim import adamw, sgd
+
+
+def make_train_step(cfg: ArchConfig, n_clients: int, *, lr: float = 1e-4,
+                    optimizer=None, window=None):
+    """Returns (init_state, train_step(state, batch, mask, scale))."""
+    if optimizer is None:
+        optimizer = adamw(lr)
+
+    def loss_fn(params, batch):
+        return transformer.per_example_loss(params, cfg, batch, window=window)
+
+    return build_energy_train_step(
+        per_example_loss_fn=loss_fn,
+        optimizer=optimizer,
+        n_clients=n_clients,
+        aux_loss_weight=(0.01 if cfg.n_experts else 0.0),
+    )
 
 
 def make_prefill_step(cfg: ArchConfig, *, window=None):
@@ -51,3 +71,9 @@ def make_serve_step(cfg: ArchConfig, *, window=None):
         return next_tok, logits, new_states
 
     return serve
+
+
+def make_sgd_train_step(cfg: ArchConfig, n_clients: int, lr: float = 0.05,
+                        window=None):
+    """Paper-exact variant: plain SGD server update (eq. 11)."""
+    return make_train_step(cfg, n_clients, optimizer=sgd(lr), window=window)

@@ -1,6 +1,6 @@
 """Models of the port: the Fig-1 CNN and the LM stack of the ported
 block kinds (``attn_mlp``; the rest of the LM zoo waits, ROADMAP Queue 1
-item 12)."""
+steps 6 and 8), with its training loss."""
 
 from repro_torch.models.cnn import (
     client_grads_fn,
@@ -16,8 +16,10 @@ from repro_torch.models.transformer import (
     forward,
     init_decode_state,
     init_lm,
+    per_example_loss,
 )
 
 __all__ = ["init_cnn", "cnn_forward", "cnn_loss", "cnn_accuracy",
            "client_grads_fn", "count_params", "init_lm", "forward",
-           "init_decode_state", "decode_step", "decode_cache_len"]
+           "init_decode_state", "decode_step", "decode_cache_len",
+           "per_example_loss"]

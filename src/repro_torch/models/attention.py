@@ -4,10 +4,12 @@ Port of ``repro.models.attention`` for the blocks the port runs:
 grouped-query attention with RoPE, causal or bidirectional, an optional
 sliding window, the flash-attention kernel K3 on the prefill path
 (``use_flash``), and one-token decode through a full cache or a ring
-buffer. M-RoPE (qwen2-vl) and cross-attention (whisper) wait for their
-block kinds (ROADMAP Queue 1 item 12): the functions here take neither,
-and :func:`repro_torch.models.transformer.check_ported` refuses configs
-that need them.
+buffer. Training differentiates the plain path (:func:`_sdpa`); K3 has
+no backward, in the JAX package as here, so a flash prefill that needs
+gradients raises. M-RoPE (qwen2-vl) and cross-attention (whisper) wait
+for their block kinds (ROADMAP Queue 1 step 8): the functions here take
+neither, and :func:`repro_torch.models.transformer.check_ported`
+refuses configs that need them.
 
 Tensor convention as in the JAX package: x (B, S, D); q (B, S, H, Dh);
 kv (B, S, Hkv, Dh).
@@ -45,18 +47,41 @@ def _rope(q, k, positions, theta):
     return apply_rope(q, positions, theta), apply_rope(k, positions, theta)
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``bmm`` of two bf16 (or f16) operands with an f32 result, and its
+    gradient by JAX's transpose rule for ``dot_general`` with
+    ``preferred_element_type=float32``: the f32 cotangent times the other
+    operand (upcast, so the product is f32), each gradient cast back to
+    its operand's dtype. On the card the forward goes to the tensor cores
+    with an f32 output (``out_dtype``), so neither operand is copied to
+    f32; the CPU has no such product, and upcasts, which gives the same
+    numbers."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.is_cuda:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a.to(torch.float32), b.to(torch.float32))
+
+    @staticmethod
+    def backward(ctx, ct):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(ct, b.to(torch.float32).transpose(1, 2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a.to(torch.float32).transpose(1, 2), ct).to(b.dtype)
+        return ga, gb
+
+
 def _mm_f32(a, b):
-    """Batched product with an f32 result. bf16 operands on the card go
-    to the tensor cores with an f32 output (``out_dtype``), so neither
-    operand is copied to f32: the products of bf16 values are exact and
-    the sum is f32, as JAX's ``preferred_element_type=float32``. The CPU
-    has no such product; there the operands are upcast, which gives the
-    same numbers."""
+    """Batched product with an f32 result: the products of bf16 values
+    are exact and the sum is f32, as JAX's
+    ``preferred_element_type=float32`` (:class:`_MatmulF32`)."""
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.is_cuda:
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.bmm(a.to(torch.float32), b.to(torch.float32))
+    return _MatmulF32.apply(a, b)
 
 
 def _sdpa(q, k, v, mask):
@@ -120,6 +145,10 @@ def attention(params, x, *, n_heads, n_kv_heads, head_dim,
     q, k = _rope(q, k, positions, rope_theta)
 
     if use_flash and causal:
+        if any(t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError(
+                "the flash-attention kernel has no backward; train with "
+                "use_flash=False (plain attention), as the JAX package does")
         out = fa_ops.flash_attention(q.contiguous(), k.contiguous(),
                                      v.contiguous(), causal=True, window=window)
     else:

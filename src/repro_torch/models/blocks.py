@@ -37,7 +37,7 @@ from repro_torch.models.common import (
 )
 
 #: Where the parts of the LM zoo the port does not run yet are queued.
-NOT_PORTED = "ROADMAP Queue 1 item 12"
+NOT_PORTED = "ROADMAP Queue 1 steps 6 and 8"
 
 
 # ------------------------------------------------------------------- MLP

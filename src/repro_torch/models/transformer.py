@@ -1,4 +1,4 @@
-"""Language-model stacks: init / forward / decode, for serving.
+"""Language-model stacks: init / forward / loss / decode.
 
 Port of ``repro.models.transformer`` for stacks of ported block kinds
 (:mod:`repro_torch.models.blocks`). The parameter tree is the JAX
@@ -6,26 +6,43 @@ package's, with the stacked leading layer axis
 (``params["stack"]["seg0"]["attn"]["wq"]["w"]`` is ``(n_layers, d_model,
 H·Dh)``), so :func:`repro_torch.convert.params_from_jax` carries a JAX
 tree over leaf for leaf. Where the JAX package scans over the layer
-axis, the port runs a Python loop over it: this is the serving path, so
-there is no remat and no scan to trace.
+axis, the port runs a Python loop over it, each stacked leaf unbound
+once a forward (a per-layer index would cost the backward a
+zero-filled, full-size gradient per layer; ``unbind``'s backward is one
+``stack``). With ``cfg.remat`` and gradients enabled each layer runs
+under ``torch.utils.checkpoint``, as the JAX package wraps it in
+``jax.checkpoint``: policy ``"full"`` saves only the layer's inputs,
+``"dots"`` also the outputs of products without batch dimensions (the
+dense layers; JAX's ``dots_with_no_batch_dims_saveable``). Recomputing
+runs the same ops on the same inputs, so the loss and gradients are
+those of a run without remat, bit for bit.
 
 What the port does not run yet raises ``NotImplementedError`` naming
-ROADMAP Queue 1 item 12: super-block repeats (``n_super > 1``), shared
-segments, the encoder-decoder and vision inputs, sinusoidal positions,
-M-RoPE, and block kinds other than ``attn_mlp``.
+ROADMAP Queue 1 steps 6 and 8: super-block repeats (``n_super > 1``),
+shared segments, the encoder-decoder and vision inputs, sinusoidal
+positions, M-RoPE, and block kinds other than ``attn_mlp``.
 
 Public entry points:
-  init_lm / forward / hidden_states         — prefill
+  init_lm / forward / per_example_loss      — training & prefill
+  hidden_states                             — the stack output, pre-head
   init_decode_state / decode_step           — serving (1 token, KV cache)
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch import random as trandom
 from repro_torch._device import resolve_device
-from repro_torch._tree import tree_leaves, tree_map
+from repro_torch._tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.blocks import NOT_PORTED, get_block
 from repro_torch.models.common import (
@@ -72,6 +89,14 @@ def _tree_index(tree, i):
     return tree_map(lambda a: a[i], tree)
 
 
+def _tree_unbind(tree):
+    """The layers of a stacked tree, each leaf unbound once along its
+    leading axis."""
+    leaves, treedef = tree_flatten(tree)
+    return [tree_unflatten(treedef, list(layer))
+            for layer in zip(*(torch.unbind(a, 0) for a in leaves))]
+
+
 # ------------------------------------------------------------------- init
 
 def _init_stacked(keys, init_one):
@@ -115,13 +140,44 @@ def init_lm(key, cfg: ArchConfig):
 
 # ------------------------------------------------------------------ apply
 
+#: Products without batch dimensions: the ops the ``"dots"`` remat
+#: policy saves (``x @ w`` of a dense layer dispatches to ``mm``).
+_DOTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.addmm.default))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg, fn):
+    """``fn`` recomputed in the backward when ``cfg.remat`` (the JAX
+    package's ``jax.checkpoint``); a call without gradients runs ``fn``
+    as it is."""
+    if not cfg.remat:
+        return fn
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+
+    def remat(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        # The blocks draw no random numbers: no RNG state to replay.
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+
+    return remat
+
+
 def apply_stack(params, cfg: ArchConfig, x, ctx):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for idx, (kind, _, _) in enumerate(cfg.resolved_superblock):
         apply = get_block(kind).apply
-        seg = params[_seg_key(idx)]
-        for i in range(tree_leaves(seg)[0].shape[0]):
-            x, a = apply(_tree_index(seg, i), x, ctx, cfg)
+        layer = _remat(cfg, lambda p, x, apply=apply: apply(p, x, ctx, cfg))
+        for p in _tree_unbind(params[_seg_key(idx)]):
+            x, a = layer(p, x)
             aux = aux + a
     return x, aux
 
@@ -135,7 +191,10 @@ def _make_ctx(cfg: ArchConfig, positions, window=None):
 
 
 def _embed(params, cfg, tokens):
-    return params["embed"]["w"][tokens]
+    # F.embedding, not an index: its backward sums each row's gradients
+    # in a fixed order (an indexed read's backward is an accumulating
+    # index_put, which the CPU runs in parallel in no fixed order).
+    return F.embedding(tokens, params["embed"]["w"])
 
 
 def _head(params, cfg, x):
@@ -162,6 +221,45 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, window=None):
     x, aux = hidden_states(params, cfg, tokens, positions=positions,
                            window=window)
     return _head(params, cfg, x), aux
+
+
+def _ce_from_logits(logits, labels):
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return lse - gold
+
+
+def _chunked_ce(params, cfg, hidden, labels, chunk):
+    """CE over sequence chunks of the LM head, a Python loop where the
+    JAX package scans: each chunk's logits are (B, chunk, V)."""
+    b, s, d = hidden.shape
+    assert s % chunk == 0, (s, chunk)
+    sums = [torch.sum(_ce_from_logits(_head(params, cfg, hidden[:, i:i + chunk]),
+                                      labels[:, i:i + chunk]), dim=-1)
+            for i in range(0, s, chunk)]
+    return torch.sum(torch.stack(sums), dim=0) / s  # (B,) mean over positions
+
+
+def per_example_loss(params, cfg: ArchConfig, batch, window=None):
+    """Causal-LM cross entropy -> ((B,) per-example losses, aux)."""
+    extra = sorted(set(batch) & {"vision_embeds", "audio_feats"})
+    if extra:
+        raise NotImplementedError(
+            f"{', '.join(extra)} not ported yet ({NOT_PORTED})")
+    labels = batch["labels"]
+    if cfg.loss_chunk and labels.shape[1] % cfg.loss_chunk == 0 \
+            and "loss_mask" not in batch:
+        hidden, aux = hidden_states(params, cfg, batch["tokens"],
+                                    window=window)
+        return _chunked_ce(params, cfg, hidden, labels, cfg.loss_chunk), aux
+    logits, aux = forward(params, cfg, batch["tokens"], window=window)
+    ce = _ce_from_logits(logits, labels)  # (B, S)
+    if "loss_mask" in batch:
+        m = batch["loss_mask"].to(torch.float32)
+        return (torch.sum(ce * m, dim=-1)
+                / torch.clamp(torch.sum(m, dim=-1), min=1.0)), aux
+    return torch.mean(ce, dim=-1), aux
 
 
 # ----------------------------------------------------------------- decode

@@ -33,6 +33,11 @@ on the card: a mixed-population batch counts one compile and one K2
 launch a step of every cell and seed, and each response (plain and
 checkpointed) equals its solo ``Study.run`` bit for bit.
 
+LM training on the card: the bf16 attention product with an f32
+output and its gradient against the upcast product (gradients bitwise);
+one reduced train step (adamw, and the flat sgd route through K2)
+against the CPU; remat on against off bitwise, deterministic.
+
 K4 (the gated-linear-recurrence scan) against its plain sequential
 version on the same inputs: ``max|K4 − plain| ≤ 1e-4·max|plain|``, as in
 ``chip_smoke.py``; strided views bitwise equal to contiguous copies.
@@ -41,6 +46,10 @@ version on the same inputs: ``max|K4 − plain| ≤ 1e-4·max|plain|``, as in
 import ctypes
 import dataclasses
 import os
+
+# cuBLAS takes its workspace setting when CUDA starts: the deterministic
+# remat test needs a fixed one.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np
 import pytest
@@ -799,3 +808,99 @@ def test_chunked_gla_on_card_matches_kernel(card):
     _k4_agrees(y, want)
     _k4_agrees(ssm_ops.gla_scan(*x, chunk=64), y)
     assert hf.shape == (2, 3, 64, 65) and torch.isfinite(hf).all()
+
+
+def test_f32_product_gradient_on_card_matches_upcast_product(card):
+    """The bf16 attention product with an f32 output (tensor cores,
+    ``out_dtype``) and its gradient against the same product on operands
+    upcast to f32: the forward to f32 sum order, the gradients (JAX's
+    transpose rule: f32 cotangent times the other operand upcast, cast
+    to the operand's dtype) bit for bit."""
+    from repro_torch.models.attention import _mm_f32
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    a = torch.randn(6, 40, 64, device=card, generator=gen).to(torch.bfloat16)
+    b = torch.randn(6, 64, 48, device=card, generator=gen).to(torch.bfloat16)
+    ct = torch.randn(6, 40, 48, device=card, generator=gen)
+    a1, b1 = a.clone().requires_grad_(), b.clone().requires_grad_()
+    a2, b2 = a.clone().requires_grad_(), b.clone().requires_grad_()
+    out = _mm_f32(a1, b1)
+    want = torch.bmm(a2.float(), b2.float())
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    got = torch.autograd.grad(out, (a1, b1), ct)
+    ref_grads = torch.autograd.grad(want, (a2, b2), ct)
+    for g, r in zip(got, ref_grads):
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g, r)
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """One energy-weighted train step of the reduced 2-layer stablelm
+    (f32, remat on) on the card against the CPU: adamw through
+    ``make_train_step`` (loss ``rtol=1e-5``, params within 2·lr, Adam's
+    first step being about ``lr·sign(g)``), and the flat sgd route
+    through K2 (one launch) against the CPU's plain version
+    (``rtol=1e-4, atol=1e-6``)."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core.trainer import build_energy_train_step
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+    cfg = get_config("stablelm-1.6b").reduced().replace(
+        superblock=(("attn_mlp", 2, False),), remat=True)
+    rng = np.random.default_rng(3)
+    raw = rng.integers(0, cfg.vocab, (8, 33)).astype(np.int32)
+    mask = torch.tensor([1.0, 0.0, 1.0, 1.0])
+    scale = torch.tensor([2.0, 1.0, 4.0, 1.0])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = transformer.init_lm(trandom.PRNGKey(0, device=dev), cfg)
+        batch = {"tokens": torch.from_numpy(raw[:, :-1]).to(dev),
+                 "labels": torch.from_numpy(raw[:, 1:]).to(dev),
+                 "client_ids": torch.arange(4, dtype=torch.int32,
+                                            device=dev).repeat_interleave(2)}
+        init, step = make_train_step(cfg, 4, optimizer=adamw(3e-4))
+        state, metrics = step(init(params), batch, mask.to(dev), scale.to(dev))
+        finit, fstep = build_energy_train_step(
+            per_example_loss_fn=lambda p, b: transformer.per_example_loss(p, cfg, b),
+            optimizer=sgd(0.05), n_clients=4, flat=True, use_kernel=True)
+        before = ops.launch_counts["masked_scaled_aggregate_update"]
+        fstate, _ = fstep(finit(params), batch, mask.to(dev), scale.to(dev))
+        launched = ops.launch_counts["masked_scaled_aggregate_update"] - before
+        out[dev] = (float(metrics["loss"]), [x.cpu() for x in tree_leaves(state.params)],
+                    [x.cpu() for x in tree_leaves(fstate.params)], launched)
+    assert out["cpu"][3] == 0 and out["cuda"][3] == 1
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for g, c in zip(out["cuda"][1], out["cpu"][1]):
+        assert (g - c).abs().max().item() <= 2 * 3e-4
+    for g, c in zip(out["cuda"][2], out["cpu"][2]):
+        torch.testing.assert_close(g, c, rtol=1e-4, atol=1e-6)
+
+
+def test_remat_on_card_gives_the_same_bits(card):
+    """bf16 reduced stablelm on the card, deterministic algorithms: the
+    loss and gradients with each layer recomputed (policies "full" and
+    "dots") equal those without remat, bit for bit."""
+    from repro_torch._tree import tree_leaves, tree_map
+    base = get_config("stablelm-1.6b").reduced().replace(
+        superblock=(("attn_mlp", 2, False),), dtype_name="bfloat16")
+    params = transformer.init_lm(trandom.PRNGKey(1, device="cuda"), base)
+    raw = torch.from_numpy(np.random.default_rng(4).integers(
+        0, base.vocab, (4, 65)).astype(np.int32)).cuda()
+    batch = {"tokens": raw[:, :-1], "labels": raw[:, 1:]}
+
+    def loss_and_grads(cfg):
+        wrt = tree_map(lambda x: x.detach().requires_grad_(), params)
+        losses, _ = transformer.per_example_loss(wrt, cfg, batch)
+        loss = torch.sum(losses)
+        return loss, torch.autograd.grad(loss, tree_leaves(wrt))
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        ref_loss, ref_grads = loss_and_grads(base)
+        for policy in ("full", "dots"):
+            loss, grads = loss_and_grads(base.replace(remat=True,
+                                                      remat_policy=policy))
+            assert torch.equal(loss, ref_loss)
+            assert all(torch.equal(g, r) for g, r in zip(grads, ref_grads))
+    finally:
+        torch.use_deterministic_algorithms(False)

@@ -53,12 +53,16 @@ def test_port_modules_include_the_experiments_engine():
                  "repro_torch.checkpoint.checkpoint",
                  "repro_torch.experiments.manifest", "repro_torch.serve",
                  "repro_torch.serve.cache", "repro_torch.serve.service",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.launch.train",
+                 "repro_torch.launch.steps", "repro_torch.data.loader",
+                 "repro_torch.data.partition", "repro_torch.core.trainer",
+                 "repro_torch.models.transformer"):
         assert name in modules
     scripts = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"examples_torch/quickstart.py", "examples_torch/paper_cifar.py",
             "benchmarks_torch/theory.py", "examples_torch/serve_batch.py",
-            "benchmarks_torch/serve_bench.py"} <= scripts
+            "benchmarks_torch/serve_bench.py",
+            "examples_torch/train_lm.py"} <= scripts
 
 
 def test_port_imports_with_jax_blocked():

@@ -277,9 +277,9 @@ def test_unported_options_raise():
                 tcfg.replace(m_rope=True),
                 tcfg.replace(pos_embed="sinusoidal"),
                 tcfg.replace(superblock=(("attn_mlp", 1, True),))):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 steps 6 and 8"):
             tt.init_lm(key, bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 steps 6 and 8"):
         t_prefill(tcfg)({}, {"tokens": torch.zeros(1, 2, dtype=torch.long),
                              "vision_embeds": None})
 
