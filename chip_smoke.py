@@ -105,9 +105,13 @@ without printing its result line:
    phase (B = 8, H = 32, S = T = 2,048, Dh = 64, causal, bf16),
    minitron-4b's attention at the same B and S (H = 24, Hkv = 8,
    Dh = 128, causal: the GQA shape of the later models), GQA 24/8 with
-   Dh = 128, a 512 window, bidirectional f32, ragged S = T = 1,000, and
+   Dh = 128, a 512 window, bidirectional f32, ragged S = T = 1,000,
    S = 100 against T = 40 with a 16 window (rows that see no key must be
-   exact zeros). Times K3 at the first two shapes, flushed and warm,
+   exact zeros), zamba2-2.7b's shared attention at the same B and S
+   (H = Hkv = 32, Dh = 80, causal, in the Dh = 128 tile), Dh = 80 with
+   GQA 32/8 and a 256 window at a ragged S = T = 1,000, and Dh = 80 in
+   f32. Times K3 at the prefill, minitron-4b and zamba2-2.7b shapes,
+   flushed and warm,
    beside the plain version, ``F.scaled_dot_product_attention`` and the
    bound, with the achieved TFLOP/s, the share of the bound, and the
    time the exponentials take at the MUFU rate (one ex2 per visible
@@ -162,11 +166,36 @@ without printing its result line:
    width cut to 2 layers, a straight 8-step driver run against one
    halted at step 4 (``--halt-at``) and resumed in a child process (this
    script with ``--train-child``): losses and final params bitwise.
-12. Prints the ``kernels`` JSON line (K1 and K2 also carry the engine,
+12. Recurrent phase: zamba2-2.7b (9 super-blocks of 5 Mamba2 blocks and
+   the shared attention block, Dh = 80) and xlstm-1.3b (6 of 7 mLSTM and
+   1 sLSTM) at full width, random bf16 weights from a seed, in turn.
+   One prefill of B = 8 x S = 2,048 through ``make_prefill_step`` with
+   ``use_flash=True``: the K4 and K3 counts are set to 0 before it and
+   must be 45 and 9 (zamba2: a K4 call a Mamba2 layer, a K3 call a
+   shared-block call) or 42 and 0 (xlstm: a K4 call an mLSTM layer)
+   after it; one more prefill timed. Then the same prefill on the plain
+   route (``chunked_gla``, plain attention) in bf16, and in f32 with the
+   weights upcast (the reference), and the LM phase's rule: the kernel
+   prefill's last-position logits within 2x the plain bf16 prefill's
+   distance from the reference, the same argmax on every row whose
+   top-two gap exceeds 2x that floor; and the kernel route in f32 with
+   the f32 weights within 1e-2 of max|logit| of the reference, its
+   argmax the reference's above twice that distance. Decode through
+   ``make_serve_step``:
+   a 128-token prompt fed token by token into a 256-slot cache, its
+   logits at position 127 held against the f32 reference prefill of
+   those tokens by the same rule, then 32 greedy steps. One prefill under
+   ``torch.profiler``, tracing the device alone (top kernels, the
+   device's busy share, K4's and K3's shares of the device time), and
+   the peak device memory. Each line
+   carries the card's name and power limit.
+13. Prints the ``kernels`` JSON line (K1 and K2 also carry the engine,
    faults and serve phases' counts, ``engine_launches``,
    ``faults_launches`` and ``serve_launches``; K2 the train phase's,
-   ``train_launches``, and its time at that shape, ``train_shape``),
-   then the result line.
+   ``train_launches``, and its time at that shape, ``train_shape``; K3
+   and K4 the recurrent phase's, ``recurrent_launches``; K4's
+   ``launches`` are the recurrent prefills', its K4 phase's count
+   ``phase_launches``), then the result line.
 
 Tolerances: f32 aggregate kernels against the plain versions
 rtol=atol=1e-6 (the client sum runs in another order; weights at the
@@ -305,25 +334,29 @@ def time_ms(torch, fn, flush, n=TIMED_LAUNCHES):
     return flushed, start.elapsed_time(end) / n
 
 
-def profile(torch, label, unit, fn, n_units, keep=None, top=8):
+def profile(torch, label, unit, fn, n_units, keep=None, top=8, cpu=True):
     """Print ``torch.profiler``'s view of ``fn`` (``n_units`` steps or
     prefills): wall and device-busy time per unit, the device's busy
     share of the wall time, and the ``top`` kernels by device time (plus
-    any kernel whose name holds ``keep``)."""
+    any kernel whose name holds ``keep``). ``cpu=False`` traces the
+    device alone: the host's operator events cost the profiler about
+    three times as long to sort, for lines that read only device rows."""
     act = torch.profiler.ProfilerActivity
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+    with torch.profiler.profile(
+            activities=[act.CPU, act.CUDA] if cpu else [act.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    profile_report(torch, label, unit, prof, wall_us, n_units, keep, top)
+    return profile_report(torch, label, unit, prof, wall_us, n_units, keep, top)
 
 
 def profile_report(torch, label, unit, prof, wall_us, n_units, keep=None,
                    top=8):
     """The lines of :func:`profile` for a finished profiler ``prof`` that
-    covered ``wall_us`` of wall time."""
+    covered ``wall_us`` of wall time. Returns the kernel rows (name,
+    device us, count) and their device us in all."""
     # Kernel rows only: an operator's row repeats its kernels' time.
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
@@ -340,6 +373,7 @@ def profile_report(torch, label, unit, prof, wall_us, n_units, keep=None,
         print(f"profile {label}:   {100 * us / busy_us:5.1f} %  "
               f"{us / n_units:9.1f} us/{unit}  x{count / n_units:<6.1f} "
               f"{name[:90]}")
+    return rows, busy_us
 
 
 def kernel_phase(torch, ops, ref, peaks):
@@ -1193,8 +1227,14 @@ K3_CASES = (  # label, (B, H, Hkv, S, T, Dh), causal, window, dtype name
     ("bidirectional f32", (2, 8, 8, 512, 512, 64), False, 0, "float32"),
     ("ragged S=T=1000", (2, 32, 32, 1000, 1000, 64), True, 0, "bfloat16"),
     ("rows with no key", (2, 4, 2, 100, 40, 64), False, 16, "bfloat16"),
+    # src/repro/configs/zamba2_2p7b.py: the shared attention block, 32
+    # heads (MHA) of 80, in the Dh = 128 tile; then Dh = 80 with GQA, a
+    # window and ragged S, and in f32.
+    ("zamba2-2.7b", (LM_BATCH, 32, 32, LM_SEQ, LM_SEQ, 80), True, 0, "bfloat16"),
+    ("Dh=80 GQA window", (2, 32, 8, 1000, 1000, 80), True, 256, "bfloat16"),
+    ("Dh=80 f32", (2, 8, 8, 300, 300, 80), True, 0, "float32"),
 )
-K3_TIMED = ("prefill shape", "minitron-4b")
+K3_TIMED = ("prefill shape", "minitron-4b", "zamba2-2.7b")
 # MUFU ex2 results a clock per SM on compute capability 9.0 (CUDA C++
 # programming guide, arithmetic instruction throughput).
 MUFU_PER_CLOCK = 16
@@ -1229,8 +1269,9 @@ def k3_build_report(build, fa_ops):
     for code in ("C7508", "C7520"):
         check(code not in log, f"K3 build: ptxas warns {code}:\n{log}")
     funcs, bodies = build_report(build, fa_ops.SOURCE)
-    for dh in (64, 128):
-        tag = f"flash_attention_bf16ILi{dh}E"
+    # (tile width, head dim) of each bf16 instance: Dh = 80 in the 128 tile.
+    for tile, dh in ((64, 64), (128, 80), (128, 128)):
+        tag = f"flash_attention_bf16ILi{tile}ELi{dh}E"
         fn = next(f for f in funcs if tag in f)
         body = next(b for n, b in bodies.items() if tag in n)
         spills, regs = funcs[fn]
@@ -1239,7 +1280,7 @@ def k3_build_report(build, fa_ops):
               f"K3 bf16 Dh={dh} spills: {spills}")
         check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
               f"K3 bf16 Dh={dh}: SASS without wgmma or TMA {counts}")
-        print(f"k3 build: bf16 Dh={dh}: ptxas {regs} (entry count; setmaxnreg "
+        print(f"k3 build: bf16 Dh={dh} (tile {tile}): ptxas {regs} (entry count; setmaxnreg "
               f"moves consumers to 232), {spills}; SASS {counts}")
 
 
@@ -1517,6 +1558,20 @@ def k4_phase(torch, ssm_ops, ssm_ref, chunked_gla, peaks):
     return launches, max_err, timing
 
 
+def dist(a, b):
+    """The largest absolute difference of two logit tensors."""
+    return (a.float() - b.float()).abs().max().item()
+
+
+def argmax_agrees(got, ref, floor):
+    """Whether ``got``'s argmax equals ``ref``'s on every row whose top-two
+    gap in ``ref`` exceeds 2x ``floor``, and how many rows those are."""
+    top2 = ref.float().topk(2, dim=-1).values
+    rows = (top2[:, 0] - top2[:, 1]) > 2 * floor
+    same = got.float().argmax(-1) == ref.float().argmax(-1)
+    return bool(same[rows].all()), int(rows.sum())
+
+
 def lm_phase(torch, rt, fa_ops):
     """stablelm-1.6b at full width: flash prefill through K3, the f32
     reference, decode through the KV cache, the profile."""
@@ -1553,15 +1608,6 @@ def lm_phase(torch, rt, fa_ops):
     prefill = make_prefill_step(cfg)
     plain = make_prefill_step(plain_cfg)
     reference = make_prefill_step(ref_cfg)
-
-    def dist(a, b):
-        return (a.float() - b.float()).abs().max().item()
-
-    def argmax_agrees(got, ref, floor):
-        top2 = ref.float().topk(2, dim=-1).values
-        rows = (top2[:, 0] - top2[:, 1]) > 2 * floor
-        same = got.float().argmax(-1) == ref.float().argmax(-1)
-        return bool(same[rows].all()), int(rows.sum())
 
     # The main path: the counted flash prefills.
     fa_ops.reset_launch_counts()
@@ -1983,6 +2029,196 @@ def train_phase(torch, rt, params, ops, ref, peaks, card):
     return {"flat_sgd": flat_launches}, k2_train
 
 
+# Recurrent phase: zamba2-2.7b and xlstm-1.3b at full width, each with
+# the K4 and K3 launches one prefill must make (a Mamba2 or mLSTM layer
+# one K4 call; zamba2's shared attention block one K3 call a
+# super-block) and its parameter count.
+REC_MODELS = (
+    ("zamba2-2.7b", 9 * 5, 9, 2_063_676_080),
+    ("xlstm-1.3b", 6 * 7, 0, 2_012_002_640),
+)
+# Timed prefills after the counted one, decode prompt, cache slots and
+# greedy steps.
+REC_TIMED, REC_PROMPT, REC_CACHE, REC_GREEDY = 1, 128, 256, 32
+# The kernel route in f32 against the f32 reference: K4's 3xTF32 products
+# (about 2**-20 each) and K3's f32 path sum in other orders than
+# chunked_gla and the plain attention, through 48-54 layers (the "rec f32
+# kernels" lines of an H100 run read 1e-5 to 1e-3 of max|logit|, PERF.md
+# §6).
+REC_F32_TOL = 1e-2
+
+
+def recurrent_model(torch, rt, fa_ops, ssm_ops, card, name, n_k4, n_k3,
+                    n_params):
+    """One recurrent model at full width: the kernel prefill counted and
+    timed, the plain bf16 and the f32 reference prefills, decode replay
+    and greedy decode, the profile. Returns the counted launches."""
+    from repro_torch._tree import tree_map
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer
+
+    cfg = rt.configs.get_config(name).replace(use_flash=True)
+    plain_cfg = cfg.replace(use_flash=False)
+    ref_cfg = plain_cfg.replace(dtype_name="float32")
+    t0_model = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = transformer.init_lm(rt.random.PRNGKey(0, device=DEVICE), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    count = rt.models.count_params(params)
+    check(count == n_params, f"{name} has {count} parameters, not {n_params}")
+    layout = ", ".join(f"{k} x{c}{' shared' if sh else ''}"
+                       for k, c, sh in cfg.resolved_superblock)
+    print(f"rec init: {name} at full width ({cfg.n_super} super-blocks of "
+          f"{layout}; d_model {cfg.d_model}, vocab {cfg.vocab}), {count:,} "
+          f"parameters ({2 * count / 1e9:.2f} GB bf16) in {init_s:.1f} s "
+          f"[{card}]")
+
+    data = rt.data.make_lm_tokens(0, LM_BATCH, LM_SEQ, cfg.vocab).tokens
+    tokens = torch.from_numpy(data[:, :LM_SEQ]).to(DEVICE)
+    prompt = tokens[:, :REC_PROMPT]
+    prefill = make_prefill_step(cfg)
+    plain = make_prefill_step(plain_cfg)
+    reference = make_prefill_step(ref_cfg)
+    kernel32 = make_prefill_step(cfg.replace(dtype_name="float32"))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    with torch.no_grad():
+        # The main path: one kernel prefill, counted from 0.
+        fa_ops.reset_launch_counts()
+        ssm_ops.reset_launch_counts()
+        flash, first_ms = timed(lambda: prefill(params, {"tokens": tokens}))
+        launches = {"gla_scan": ssm_ops.launch_counts["gla_scan"],
+                    "flash_attention": fa_ops.launch_counts["flash_attention"]}
+        check(launches == {"gla_scan": n_k4, "flash_attention": n_k3},
+              f"{name} prefill launches {launches}, expected {n_k4} K4 and "
+              f"{n_k3} K3")
+        check(flash.shape == (LM_BATCH, cfg.vocab)
+              and bool(torch.isfinite(flash).all()),
+              f"{name} kernel prefill logits not finite or of the wrong shape")
+        ms = [first_ms] + [timed(lambda: prefill(params, {"tokens": tokens}))[1]
+                           for _ in range(REC_TIMED)]
+        print(f"rec prefill {name} (use_flash: K4, K3): B={LM_BATCH} "
+              f"S={LM_SEQ}: " + " ".join(f"{m:.2f}" for m in ms)
+              + f" ms (the first counted: {n_k4} K4 and {n_k3} K3 launches), "
+              f"{LM_BATCH * LM_SEQ / min(ms[1:]) * 1e3:,.0f} tokens/s (best "
+              f"timed) [{card}]")
+
+        plain_logits, plain_ms = timed(lambda: plain(params, {"tokens": tokens}))
+        plain_prompt = plain(params, {"tokens": prompt})
+        params32 = tree_map(lambda x: x.float(), params)
+        ref_logits, ref_ms = timed(lambda: reference(params32, {"tokens": tokens}))
+        ref_prompt = reference(params32, {"tokens": prompt})
+        k32_logits = kernel32(params32, {"tokens": tokens})
+        del params32
+    torch.cuda.empty_cache()
+    floor = dist(plain_logits, ref_logits)
+    err = dist(flash, ref_logits)
+    agree, rows = argmax_agrees(flash, ref_logits, floor)
+    check(err <= 2 * floor, f"{name} kernel prefill {err:.4g} from the f32 "
+          f"reference, above 2x the bf16 floor {floor:.4g}")
+    check(agree, f"{name} kernel prefill argmax differs from the f32 "
+          f"reference on a row whose top-two gap exceeds 2x the floor")
+    print(f"rec reference {name}: plain bf16 prefill (chunked_gla, plain "
+          f"attention) {plain_ms:.2f} ms, f32 reference {ref_ms:.2f} ms; "
+          f"last-position logits (max |logit| "
+          f"{ref_logits.abs().max().item():.3g}) from the f32 reference: plain "
+          f"bf16 {floor:.4g} (the floor), kernel {err:.4g} (<= 2x floor); "
+          f"argmax agrees on all {rows} of {LM_BATCH} rows whose top-two gap "
+          f"exceeds 2x the floor [{card}]")
+    # The rule's floor is wide here (bf16 rounding through 48-54 layers),
+    # so the kernels are also held in f32, against the same reference.
+    top = ref_logits.abs().max().item()
+    err32 = dist(k32_logits, ref_logits)
+    agree, rows = argmax_agrees(k32_logits, ref_logits, err32)
+    check(err32 <= REC_F32_TOL * top and agree,
+          f"{name} f32 kernel prefill {err32:.4g} from the f32 reference "
+          f"(bound {REC_F32_TOL} x {top:.4g}), argmax agrees {agree}")
+    print(f"rec f32 kernels {name}: the kernel route (K4, K3 in f32) with "
+          f"the f32 weights {err32:.4g} from the f32 reference "
+          f"({err32 / top:.3g} of max|logit|, bound {REC_F32_TOL}); argmax "
+          f"agrees on all {rows} of {LM_BATCH} rows whose top-two gap "
+          f"exceeds 2x that [{card}]")
+
+    serve = make_serve_step(cfg)
+    states = transformer.init_decode_state(
+        cfg, LM_BATCH, transformer.decode_cache_len(cfg, REC_CACHE),
+        device=DEVICE)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(REC_PROMPT):
+            nxt, logits, states = serve(params, prompt[:, pos:pos + 1],
+                                        states, pos)
+        torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t0) / REC_PROMPT * 1e3
+    floor_p = dist(plain_prompt, ref_prompt)
+    err_p = dist(logits, ref_prompt)
+    agree, rows = argmax_agrees(logits, ref_prompt, floor_p)
+    check(err_p <= 2 * floor_p, f"{name} decode at position {REC_PROMPT - 1}: "
+          f"{err_p:.4g} from the f32 reference, above 2x the floor {floor_p:.4g}")
+    check(agree, f"{name} decode argmax differs from the f32 reference on a "
+          f"row whose top-two gap exceeds 2x the floor")
+    print(f"rec decode replay {name}: {REC_PROMPT} prompt tokens one at a time "
+          f"through make_serve_step (cache {REC_CACHE}), {replay_ms:.2f} "
+          f"ms/step; logits at position {REC_PROMPT - 1} from the f32 "
+          f"reference prefill of those tokens {err_p:.4g} (<= 2x the floor "
+          f"{floor_p:.4g}); argmax agrees on all {rows} rows above 2x the "
+          f"floor [{card}]")
+
+    tok, first = nxt[:, None], []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(REC_PROMPT, REC_PROMPT + REC_GREEDY):
+            nxt, logits, states = serve(params, tok, states, pos)
+            tok = nxt[:, None]
+            first.append(nxt)
+        torch.cuda.synchronize()
+        greedy_ms = (time.perf_counter() - t0) / REC_GREEDY * 1e3
+    check(bool(torch.isfinite(logits).all()), f"{name} decode logits not finite")
+    print(f"rec decode {name}: {REC_GREEDY} greedy steps at positions "
+          f"{REC_PROMPT}..{REC_PROMPT + REC_GREEDY - 1}, {greedy_ms:.2f} ms/step "
+          f"({LM_BATCH * 1e3 / greedy_ms:.0f} tokens/s); tokens of row 0: "
+          f"{[int(t[0]) for t in first[:8]]} [{card}]")
+
+    with torch.no_grad():
+        rows, busy_us = profile(torch, f"rec prefill {name}", "prefill",
+                                lambda: prefill(params, {"tokens": tokens}), 1,
+                                cpu=False)
+    share = lambda *keys: 100 * sum(us for n, us, _ in rows
+                                    if any(k in n for k in keys)) / busy_us
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"rec phase {name}: K4 (gla_scores, gla_walk) {share('gla_'):.1f} % "
+          f"and K3 {share('flash_attention'):.1f} % of the prefill's device "
+          f"time; peak device memory {peak:.2f} GB; {time.perf_counter() - t0_model:.1f} s "
+          f"[{card}]")
+    del params, states
+    torch.cuda.empty_cache()
+    return launches
+
+
+def recurrent_phase(torch, rt, fa_ops, ssm_ops, card):
+    """zamba2-2.7b and xlstm-1.3b served at full width (random bf16 weights
+    from seed 0), each prefill counted: K4 on every Mamba2 and mLSTM
+    layer, K3 on zamba2's shared attention (Dh = 80)."""
+    phase_t0 = time.perf_counter()
+    counts = {name: recurrent_model(torch, rt, fa_ops, ssm_ops, card, name,
+                                    *rest)
+              for name, *rest in REC_MODELS}
+    print(f"rec phase: took {time.perf_counter() - phase_t0:.1f} s [{card}]")
+    return counts
+
+
 def load_port():
     """Import the port from ``./src``."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -2067,6 +2303,7 @@ def main():
     train_counts, k2_train = train_phase(torch, rt, lm_params, ops, ref,
                                          peaks, card)
     del lm_params
+    rec_counts = recurrent_phase(torch, rt, fa_ops, ssm_ops, card)
 
     names = {"k1": ("masked_scaled_aggregate", SOURCE,
                     "src/repro/kernels/aggregate/aggregate.py:77"),
@@ -2104,13 +2341,21 @@ def main():
             kernels[-1]["train_shape"] = k2_train
         if key == "k3":
             kernels[-1]["shapes"] = k3_timing
-    # K4's main path is one scan at each of two shapes: its times and bound
-    # are the sums over both, and each shape's own numbers follow.
+            # The recurrent phase's prefills, each counted from 0.
+            kernels[-1]["recurrent_launches"] = {
+                name: c["flash_attention"] for name, c in rec_counts.items()}
+    # K4's main path is the two recurrent models' prefills: its launches
+    # are theirs, counted from 0 before each. Its times and bound are the
+    # K4 phase's, one scan at each layer's shape (the sums over both; each
+    # shape's own numbers follow), whose count is "phase_launches".
     total = lambda key: sum(t[key] for t in k4_timing.values())
     kernels.append({
         "name": "gla_scan", "route": "cuda", "source": K4_SOURCE,
         "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:65",
-        "launches": launches["gla_scan"], "max_abs_err": k4_err,
+        "launches": sum(c["gla_scan"] for c in rec_counts.values()),
+        "recurrent_launches": {name: c["gla_scan"]
+                               for name, c in rec_counts.items()},
+        "phase_launches": launches["gla_scan"], "max_abs_err": k4_err,
         "ms": total("ms"), "plain_ms": total("plain_ms"),
         "bound_ms": total("bound_ms"), "bound_by": max(
             k4_timing.values(), key=lambda t: t["bound_ms"])["bound_by"],

@@ -63,7 +63,10 @@ def _convert(x, device):
 
 
 def params_from_jax(tree, device=None):
-    """A JAX parameter tree (numpy leaves) → the port's tree of tensors."""
+    """A JAX parameter tree (numpy leaves) → the port's tree of tensors,
+    each leaf in its own dtype and shape (a recurrent stack mixes f32
+    leaves such as ``a_log`` with bf16 ones under leading ``(n_super,
+    count)`` axes), bf16 bit for bit."""
     return _convert(tree, resolve_device(device))
 
 

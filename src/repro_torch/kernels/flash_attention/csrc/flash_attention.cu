@@ -52,8 +52,22 @@
 //   places the wait for it before the first write of the packed p (that
 //   product's A operand), which it schedules early.
 // Tiles are 1024-byte aligned and swizzled by 128 bytes, as TMA writes
-// them and the wgmma descriptors read them; a tile is Dh/64 column
+// them and the wgmma descriptors read them; a tile is D/64 column
 // blocks of 64 bf16 (one 128-byte row each), loaded as one TMA box each.
+//
+// Head dims: the kernel is compiled with a tile width D of 64 or 128 and
+// a head dim DH <= D, a multiple of 16: Dh = 64 and 128 fill their tile,
+// and Dh = 80 (zamba2-2.7b's shared attention) runs in the Dh = 128 tile.
+// Its rows are 160 bytes, which no single 128-byte-swizzled box holds, so
+// the tensor maps keep the head dim at 80 and the second box of a row
+// (columns 64..127) reads columns 80..127 as zeros, TMA's fill for
+// elements past the tensor's edge: nothing is padded or copied in device
+// memory. S = Q K^T runs its 16-column steps over the first 80 columns
+// only; O += P V runs over the whole tile, whose last 48 columns of V
+// are zeros, and only the first 80 columns of O are stored. At zamba2's
+// shape the two products so do 128/80 = 1.6x the work of Dh = 80 in P V
+// and none extra in Q K^T; the exponentials, one a score, are as many as
+// at any Dh.
 //
 // Budget (shared memory; registers a thread):
 //   Dh = 64:  Q 16 KB + 3 x (K 16 KB + V 16 KB) = 112 KB;
@@ -305,15 +319,15 @@ __device__ __forceinline__ void pin_all(uint32_t (&r)[N][4]) {
   for (int i = 0; i < N; ++i) pin(r[i][0]), pin(r[i][1]), pin(r[i][2]), pin(r[i][3]);
 }
 
-// Issue S (64 x kBN) = Q K^T for this warpgroup's rows: qd and kd
-// describe the Q rows and the K slot, Dh/64 column blocks of 128-byte
-// rows each; a 16-deep step moves 32 bytes along a row. A descriptor
+// Issue S (64 x kBN) = Q K^T for this warpgroup's rows over the first DH
+// columns: qd and kd describe the Q rows and the K slot, column blocks of
+// 64 bf16 in 128-byte rows; a 16-deep step moves 32 bytes along a row. A descriptor
 // moves by an offset in its address field (16-byte units), which no
 // offset inside shared memory carries out of.
-template <int D>
+template <int DH>
 __device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint64_t qd, uint64_t kd) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
+  for (int kk = 0; kk < DH / 16; ++kk)
     wgmma_ss_n128(sc, qd + ((kk / 4) * (kBM * 128) + (kk % 4) * 32) / 16,
                   kd + ((kk / 4) * (kBN * 128) + (kk % 4) * 32) / 16, kk > 0);
   wgmma_commit();
@@ -463,8 +477,9 @@ struct Work {
 // Persistent: one block an SM walks work tiles w = blockIdx.x,
 // blockIdx.x + gridDim.x, ... The K/V ring runs on across work tiles,
 // so the producer loads the next tile's Q and first keys while the
-// consumers finish the current one.
-template <int D>
+// consumers finish the current one. D is the tile width, DH the head dim
+// of q, k, v and out (see "Head dims" above).
+template <int D, int DH>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_bf16(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
@@ -543,13 +558,14 @@ flash_attention_bf16(const __grid_constant__ CUtensorMap tq,
     const uint64_t qd = sw128_desc(sq + wg * 64 * 128, 16, 1024);
     const uint64_t kd = sw128_desc(sk, 16, 1024), vd = sw128_desc(sv, kBN * 128, 1024);
     constexpr uint64_t kSlot = P::kKV / 16;
-    const int64_t q_stride = (int64_t)H * D;  // between consecutive positions
+    const int64_t q_stride = (int64_t)H * DH;  // between consecutive positions
     int ring = 0, used = 0;
 
     for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
       const Work wk(w, n_q, H, T, causal, window);
       const int row0 = wk.q0 + 64 * wg + warp * 16 + lane / 4, row1 = row0 + 8;
       float acc[D / 2];  // O: D/8 column blocks of 8, four values a thread each
+                         // (the blocks past DH hold zeros)
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
       Softmax sm(row0, row1, lane, T, causal, window, scale_log2);
@@ -579,7 +595,7 @@ flash_attention_bf16(const __grid_constant__ CUtensorMap tq,
         turn_wait(my_turn);
         pin_all(sc);
         wgmma_fence();
-        issue_qk<D>(sc, qd, kd + (ring % P::kStages) * kSlot);
+        issue_qk<DH>(sc, qd, kd + (ring % P::kStages) * kSlot);
         turn_pass(their_turn);
         wgmma_wait<0>();
         pin_all(sc);
@@ -603,7 +619,7 @@ flash_attention_bf16(const __grid_constant__ CUtensorMap tq,
           pin_all(acc);
           pin_all(pf);
           wgmma_fence();
-          issue_qk<D>(sc, qd, kd + s * kSlot);
+          issue_qk<DH>(sc, qd, kd + s * kSlot);
           issue_pv<D>(acc, pf, vd + ps * kSlot);
           turn_pass(their_turn);
           wgmma_wait<1>();  // S is in; P V of the previous tile may still run
@@ -644,9 +660,9 @@ flash_attention_bf16(const __grid_constant__ CUtensorMap tq,
       l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
       l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
       const float r0 = 1.f / fmaxf(l0, 1e-30f), r1 = 1.f / fmaxf(l1, 1e-30f);
-      __nv_bfloat16* ob = o + ((int64_t)wk.b * S * H + wk.h) * D + 2 * (lane & 3);
+      __nv_bfloat16* ob = o + ((int64_t)wk.b * S * H + wk.h) * DH + 2 * (lane & 3);
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DH / 8; ++j) {
         if (row0 < S)
           *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)row0 * q_stride + j * 8) =
               __floats2bfloat162_rn(acc[4 * j] * r0, acc[4 * j + 1] * r0);
@@ -682,17 +698,18 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (B, rows, heads, D) bf16 tensor as a 4-D map (column, head, row,
+// A (B, rows, heads, dh) bf16 tensor as a 4-D map (column, head, row,
 // batch) whose box is 64 columns of one head over `box_rows` rows,
-// swizzled by 128 bytes; rows past the end read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int D, int heads, int rows, int B,
+// swizzled by 128 bytes; rows past the end, and columns past dh, read as
+// zeros.
+bool make_map(CUtensorMap* map, const void* ptr, int dh, int heads, int rows, int B,
               int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)rows,
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads, (cuuint64_t)rows,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)rows * heads * D * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)dh * 2, (cuuint64_t)heads * dh * 2,
+                                 (cuuint64_t)rows * heads * dh * 2};
   const cuuint32_t box[4] = {(cuuint32_t)kCols, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
@@ -701,19 +718,20 @@ bool make_map(CUtensorMap* map, const void* ptr, int D, int heads, int rows, int
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int DH>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
                 int S, int T, int causal, int window, float scale, cudaStream_t stream) {
+  static_assert(DH <= D && DH % 16 == 0, "head dim within the tile, in 16-column steps");
   CUtensorMap tq, tk, tv;
   // With T = 0 no block loads a key: q stands in for k and v, unread.
   const void* kp = T > 0 ? k : q;
   const void* vp = T > 0 ? v : q;
   const int rows = T > 0 ? T : 1;
-  if (!make_map(&tq, q, D, H, S, B, kBM) || !make_map(&tk, kp, D, Hkv, rows, B, kBN) ||
-      !make_map(&tv, vp, D, Hkv, rows, B, kBN))
+  if (!make_map(&tq, q, DH, H, S, B, kBM) || !make_map(&tk, kp, DH, Hkv, rows, B, kBN) ||
+      !make_map(&tv, vp, DH, Hkv, rows, B, kBN))
     return -2;
   constexpr int smem = Plan<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_bf16<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_bf16<D, DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   int device, sms;
@@ -722,7 +740,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
     return (int)err;
   const long long n_work = (long long)((S + kBM - 1) / kBM) * H * B;
   if (n_work > INT_MAX) return -1;
-  flash_attention_bf16<D><<<(unsigned)(n_work < sms ? n_work : sms), kThreads, smem, stream>>>(
+  flash_attention_bf16<D, DH><<<(unsigned)(n_work < sms ? n_work : sms), kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, S, T, H, Hkv, causal, window,
       scale * kLog2e);
   return (int)cudaGetLastError();
@@ -739,7 +757,7 @@ __global__ void __launch_bounds__(kF32Threads)
 flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o, int S, int T, int H,
                     int Hkv, int causal, int window, float scale) {
-  constexpr int kPer = D / 32;  // output columns per lane
+  constexpr int kPer = (D + 31) / 32;  // output columns per lane (the last ragged at D = 80)
   __shared__ float qs[kF32Rows][D];
   __shared__ float ks[kF32Keys][D + 1];  // padded: lane j reads row j
   __shared__ float vs[kF32Keys][D];
@@ -799,7 +817,9 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < kF32Keys; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
-        for (int i = 0; i < kPer; ++i) acc[rr][i] = fmaf(pj, vs[j][lane + 32 * i], acc[rr][i]);
+        for (int i = 0; i < kPer; ++i)
+          if (D % 32 == 0 || lane + 32 * i < D)
+            acc[rr][i] = fmaf(pj, vs[j][lane + 32 * i], acc[rr][i]);
       }
     }
   }
@@ -810,7 +830,8 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float denom = fmaxf(l_run[rr], 1e-30f);
 #pragma unroll
     for (int i = 0; i < kPer; ++i)
-      ob[(int64_t)row * q_stride + lane + 32 * i] = acc[rr][i] / denom;
+      if (D % 32 == 0 || lane + 32 * i < D)
+        ob[(int64_t)row * q_stride + lane + 32 * i] = acc[rr][i] / denom;
   }
 }
 
@@ -829,7 +850,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
 extern "C" {
 
 // q, out: (B, S, H, D); k, v: (B, T, Hkv, D); contiguous, one dtype
-// (0 = f32, 1 = bf16); H a multiple of Hkv; D 64 or 128. scale is
+// (0 = f32, 1 = bf16); H a multiple of Hkv; D 64, 80 or 128. scale is
 // D^-0.5. out may not alias an input.
 int flash_attention(const void* q, const void* k, const void* v, void* out, int dtype, int B,
                     int H, int Hkv, int S, int T, int D, int causal, int window, float scale,
@@ -838,11 +859,15 @@ int flash_attention(const void* q, const void* k, const void* v, void* out, int 
   if (Hkv <= 0 || H % Hkv) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16 && D == 64)
-    return launch_bf16<64>(q, k, v, out, B, H, Hkv, S, T, causal, window, scale, s);
+    return launch_bf16<64, 64>(q, k, v, out, B, H, Hkv, S, T, causal, window, scale, s);
+  if (dtype == kBF16 && D == 80)
+    return launch_bf16<128, 80>(q, k, v, out, B, H, Hkv, S, T, causal, window, scale, s);
   if (dtype == kBF16 && D == 128)
-    return launch_bf16<128>(q, k, v, out, B, H, Hkv, S, T, causal, window, scale, s);
+    return launch_bf16<128, 128>(q, k, v, out, B, H, Hkv, S, T, causal, window, scale, s);
   if (dtype == kF32 && D == 64)
     return launch_f32<64>(q, k, v, out, B, H, Hkv, S, T, causal, window, scale, s);
+  if (dtype == kF32 && D == 80)
+    return launch_f32<80>(q, k, v, out, B, H, Hkv, S, T, causal, window, scale, s);
   if (dtype == kF32 && D == 128)
     return launch_f32<128>(q, k, v, out, B, H, Hkv, S, T, causal, window, scale, s);
   return -1;

@@ -25,8 +25,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
-#: Head dims the kernel is compiled for.
-HEAD_DIMS = (64, 128)
+#: Head dims the kernel is compiled for. In bf16, Dh = 80 (zamba2-2.7b's
+#: shared attention) runs in the Dh = 128 tile, the columns past 80 read
+#: as zeros by TMA (nothing is padded in device memory).
+HEAD_DIMS = (64, 80, 128)
 #: Query rows of one work tile of the bf16 kernel (its BLOCK_M); it has
 #: S / BLOCK_Q * H * B of them, fewer than 2**31, walked by one block an
 #: SM. The f32 grid is (H, B, S / 16), and an axis after the first may

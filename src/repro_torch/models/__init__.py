@@ -1,6 +1,6 @@
 """Models of the port: the Fig-1 CNN and the LM stack of the ported
-block kinds (``attn_mlp``; the rest of the LM zoo waits, ROADMAP Queue 1
-steps 6 and 8), with its training loss."""
+block kinds (``attn_mlp``, ``mamba2``, ``mlstm``, ``slstm``; the rest of
+the LM zoo waits, ROADMAP Queue 1 step 8), with its training loss."""
 
 from repro_torch.models.cnn import (
     client_grads_fn,

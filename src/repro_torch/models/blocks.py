@@ -1,18 +1,19 @@
 """Residual blocks — the units the stacks loop over.
 
 Port of ``repro.models.blocks`` for the ``attn_mlp`` block (pre-norm
-attention + MLP), the one block kind of the dense configs. Each kind
-provides::
+attention + MLP) and the recurrent kinds ``mamba2``, ``mlstm`` and
+``slstm`` (:mod:`repro_torch.models.ssm`). Each kind provides::
 
     init_<kind>(key, cfg)                     -> params
     apply_<kind>(params, x, ctx, cfg)         -> (x, aux)
     state_<kind>(cfg, batch, cache_len, dtype, device) -> decode state
     decode_<kind>(params, x, state, pos, ctx, cfg)     -> (x, state)
 
-``ctx`` is a dict with: positions, window, use_flash. The other kinds
-of the JAX package (attn_moe, mamba2, mlstm, slstm, enc_attn_mlp,
-xattn) come with their configs; :func:`get_block` raises
-``NotImplementedError`` for them.
+``ctx`` is a dict with: positions, window, use_flash (the prefill's
+attention through K3 and its scan through K4). The other kinds of the
+JAX package (attn_moe, enc_attn_mlp, xattn) come with their configs;
+:func:`get_block` raises ``NotImplementedError`` for them. A decode step
+writes the block's state in place and returns it.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch import random as trandom
+from repro_torch.models import ssm
 from repro_torch.models.attention import (
     attention,
     decode_attention,
@@ -37,7 +39,7 @@ from repro_torch.models.common import (
 )
 
 #: Where the parts of the LM zoo the port does not run yet are queued.
-NOT_PORTED = "ROADMAP Queue 1 steps 6 and 8"
+NOT_PORTED = "ROADMAP Queue 1 step 8"
 
 
 # ------------------------------------------------------------------- MLP
@@ -113,6 +115,102 @@ def decode_attn_mlp(params, x, state, pos, ctx, cfg):
     return x, state
 
 
+# ----------------------------------------------------------------- mamba2
+
+def init_mamba2_block(key, cfg):
+    return {
+        "ln": norm_init(cfg.d_model, cfg.dtype, cfg.norm, key.device),
+        "mixer": ssm.init_mamba2(key, cfg.d_model, cfg.ssm_state, cfg.dtype,
+                                 head_dim=cfg.ssm_head_dim),
+    }
+
+
+def apply_mamba2_block(params, x, ctx, cfg):
+    h = apply_norm(params["ln"], x, cfg.norm)
+    y = ssm.apply_mamba2(params["mixer"], h, d_state=cfg.ssm_state,
+                         head_dim=cfg.ssm_head_dim, chunk=cfg.gla_chunk,
+                         use_kernel=ctx.get("use_flash", False))
+    return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def state_mamba2_block(cfg, batch, cache_len, dtype, device=None):
+    return ssm.init_mamba2_state(batch, cfg.d_model, cfg.ssm_state, dtype,
+                                 head_dim=cfg.ssm_head_dim, device=device)
+
+
+def decode_mamba2_block(params, x, state, pos, ctx, cfg):
+    h = apply_norm(params["ln"], x, cfg.norm)
+    y, state = ssm.decode_mamba2(params["mixer"], h, state,
+                                 d_state=cfg.ssm_state,
+                                 head_dim=cfg.ssm_head_dim)
+    return x + y, state
+
+
+# ------------------------------------------------------------------ mlstm
+
+def init_mlstm_block(key, cfg):
+    return {
+        "ln": norm_init(cfg.d_model, cfg.dtype, cfg.norm, key.device),
+        "mixer": ssm.init_mlstm(key, cfg.d_model, cfg.n_heads, cfg.dtype),
+    }
+
+
+def apply_mlstm_block(params, x, ctx, cfg):
+    h = apply_norm(params["ln"], x, cfg.norm)
+    y = ssm.apply_mlstm(params["mixer"], h, n_heads=cfg.n_heads,
+                        chunk=cfg.gla_chunk,
+                        use_kernel=ctx.get("use_flash", False))
+    return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def state_mlstm_block(cfg, batch, cache_len, dtype, device=None):
+    return ssm.init_mlstm_state(batch, cfg.d_model, cfg.n_heads, dtype,
+                                device=device)
+
+
+def decode_mlstm_block(params, x, state, pos, ctx, cfg):
+    h = apply_norm(params["ln"], x, cfg.norm)
+    y, state = ssm.decode_mlstm(params["mixer"], h, state, n_heads=cfg.n_heads)
+    return x + y, state
+
+
+# ------------------------------------------------------------------ slstm
+
+def init_slstm_block(key, cfg):
+    k1, k2 = trandom.split(key)
+    ff = cfg.slstm_ff or max(64, (4 * cfg.d_model // 3 + 63) // 64 * 64)
+    return {
+        "ln1": norm_init(cfg.d_model, cfg.dtype, cfg.norm, key.device),
+        "mixer": ssm.init_slstm(k1, cfg.d_model, cfg.slstm_heads, cfg.dtype),
+        "ln2": norm_init(cfg.d_model, cfg.dtype, cfg.norm, key.device),
+        "mlp": init_mlp(k2, cfg.d_model, ff, cfg.dtype, cfg.use_bias,
+                        gated=False),
+    }
+
+
+def apply_slstm_block(params, x, ctx, cfg):
+    h = apply_norm(params["ln1"], x, cfg.norm)
+    x = x + ssm.apply_slstm(params["mixer"], h, n_heads=cfg.slstm_heads)
+    h = apply_norm(params["ln2"], x, cfg.norm)
+    x = x + apply_mlp(params["mlp"], h, act=cfg.act)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def state_slstm_block(cfg, batch, cache_len, dtype, device=None):
+    return ssm.init_slstm_state(batch, cfg.d_model, cfg.slstm_heads,
+                                device=device)
+
+
+def decode_slstm_block(params, x, state, pos, ctx, cfg):
+    h = apply_norm(params["ln1"], x, cfg.norm)
+    y, state = ssm.decode_slstm(params["mixer"], h, state,
+                                n_heads=cfg.slstm_heads)
+    x = x + y
+    h = apply_norm(params["ln2"], x, cfg.norm)
+    x = x + apply_mlp(params["mlp"], h, act=cfg.act)
+    return x, state
+
+
 # -------------------------------------------------------------- registry
 
 class BlockDef(NamedTuple):
@@ -125,10 +223,16 @@ class BlockDef(NamedTuple):
 BLOCKS = {
     "attn_mlp": BlockDef(init_attn_mlp, apply_attn_mlp, state_attn_mlp,
                          decode_attn_mlp),
+    "mamba2": BlockDef(init_mamba2_block, apply_mamba2_block,
+                       state_mamba2_block, decode_mamba2_block),
+    "mlstm": BlockDef(init_mlstm_block, apply_mlstm_block, state_mlstm_block,
+                      decode_mlstm_block),
+    "slstm": BlockDef(init_slstm_block, apply_slstm_block, state_slstm_block,
+                      decode_slstm_block),
 }
 
 #: Block kinds of the JAX package that the port does not run yet.
-UNPORTED = ("attn_moe", "mamba2", "mlstm", "slstm", "enc_attn_mlp", "xattn")
+UNPORTED = ("attn_moe", "enc_attn_mlp", "xattn")
 
 
 def get_block(kind: str) -> BlockDef:

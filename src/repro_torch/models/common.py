@@ -1,8 +1,8 @@
 """Shared model pieces: initializers, the dense layer, norms, rotary.
 
 Port of ``repro.models.common`` without its sharding hints (the port
-runs on one card) and without M-RoPE (qwen2-vl, ROADMAP Queue 1 item
-12). Parameters are plain nested dicts of tensors; every layer is an
+runs on one card) and without M-RoPE (qwen2-vl, ROADMAP Queue 1 step
+8). Parameters are plain nested dicts of tensors; every layer is an
 ``init_*(key, ...) -> params`` plus a pure apply function. Dense weights
 are ``(d_in, d_out)``, as in the JAX package.
 """

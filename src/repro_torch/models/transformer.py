@@ -1,13 +1,19 @@
 """Language-model stacks: init / forward / loss / decode.
 
 Port of ``repro.models.transformer`` for stacks of ported block kinds
-(:mod:`repro_torch.models.blocks`). The parameter tree is the JAX
-package's, with the stacked leading layer axis
+(:mod:`repro_torch.models.blocks`). The stack is ``cfg.resolved_superblock``,
+an ordered tuple of ``(block_kind, count, shared)`` segments repeated
+``cfg.n_super`` times. The parameter tree is the JAX package's: a
+segment's leaves carry the leading layer axes ``(count,)``, or
+``(n_super, count)`` when the super-block repeats
 (``params["stack"]["seg0"]["attn"]["wq"]["w"]`` is ``(n_layers, d_model,
-H·Dh)``), so :func:`repro_torch.convert.params_from_jax` carries a JAX
-tree over leaf for leaf. Where the JAX package scans over the layer
-axis, the port runs a Python loop over it, each stacked leaf unbound
-once a forward (a per-layer index would cost the backward a
+H·Dh)`` for a dense stack), and a shared segment (zamba2's shared
+attention block) keeps ONE parameter set, used once a super-block,
+while its decode state (KV cache) has one entry a call site. So
+:func:`repro_torch.convert.params_from_jax` carries a JAX tree over
+leaf for leaf. Where the JAX package scans over the layer and
+super-block axes, the port runs Python loops over them, each stacked
+leaf unbound once a forward (a per-layer index would cost the backward a
 zero-filled, full-size gradient per layer; ``unbind``'s backward is one
 ``stack``). With ``cfg.remat`` and gradients enabled each layer runs
 under ``torch.utils.checkpoint``, as the JAX package wraps it in
@@ -18,9 +24,9 @@ runs the same ops on the same inputs, so the loss and gradients are
 those of a run without remat, bit for bit.
 
 What the port does not run yet raises ``NotImplementedError`` naming
-ROADMAP Queue 1 steps 6 and 8: super-block repeats (``n_super > 1``),
-shared segments, the encoder-decoder and vision inputs, sinusoidal
-positions, M-RoPE, and block kinds other than ``attn_mlp``.
+ROADMAP Queue 1 step 8: the encoder-decoder and vision inputs,
+sinusoidal positions, M-RoPE, and the block kinds ``attn_moe``,
+``enc_attn_mlp`` and ``xattn``.
 
 Public entry points:
   init_lm / forward / per_example_loss      — training & prefill
@@ -42,7 +48,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch import random as trandom
 from repro_torch._device import resolve_device
-from repro_torch._tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from repro_torch._tree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.blocks import NOT_PORTED, get_block
 from repro_torch.models.common import (
@@ -56,8 +62,6 @@ from repro_torch.models.common import (
 def check_ported(cfg: ArchConfig):
     """Raise ``NotImplementedError`` for what the port does not run yet."""
     missing = []
-    if cfg.n_super != 1:
-        missing.append(f"n_super={cfg.n_super}")
     if cfg.enc_dec:
         missing.append("the encoder-decoder")
     if cfg.n_vision_tokens:
@@ -66,10 +70,8 @@ def check_ported(cfg: ArchConfig):
         missing.append("M-RoPE")
     if cfg.pos_embed not in ("rope", "none"):
         missing.append(f"pos_embed={cfg.pos_embed!r}")
-    for kind, _, shared in cfg.resolved_superblock:
+    for kind, _, _ in cfg.resolved_superblock:
         get_block(kind)
-        if shared:
-            missing.append(f"shared segment {kind!r}")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet ({NOT_PORTED})")
@@ -83,10 +85,6 @@ def _default_positions(cfg: ArchConfig, b, s, device):
 
 def _seg_key(idx: int) -> str:
     return f"seg{idx}"
-
-
-def _tree_index(tree, i):
-    return tree_map(lambda a: a[i], tree)
 
 
 def _tree_unbind(tree):
@@ -111,13 +109,19 @@ def _init_stacked(keys, init_one):
     return stacked
 
 
-def _init_segments(key, cfg: ArchConfig, superblock):
+def _init_segments(key, cfg: ArchConfig, superblock, n_super):
     params = {}
     keys = trandom.split(key, len(superblock))
-    for idx, (kind, count, _) in enumerate(superblock):
+    for idx, (kind, count, shared) in enumerate(superblock):
         init = get_block(kind).init
-        params[_seg_key(idx)] = _init_stacked(
-            trandom.split(keys[idx], count), lambda k: init(k, cfg))
+        init_one = lambda k, init=init: init(k, cfg)
+        if shared:
+            params[_seg_key(idx)] = init_one(keys[idx])
+            continue
+        lead = (n_super, count) if n_super > 1 else (count,)
+        ks = trandom.split(keys[idx], lead).reshape(-1, 2)
+        params[_seg_key(idx)] = tree_map(
+            lambda l: l.reshape(lead + l.shape[1:]), _init_stacked(ks, init_one))
     return params
 
 
@@ -129,7 +133,8 @@ def init_lm(key, cfg: ArchConfig):
     params = {
         "embed": {"w": normal_init(k_embed, (cfg.vocab, cfg.d_model),
                                    cfg.dtype, cfg.d_model ** -0.5)},
-        "stack": _init_segments(k_stack, cfg, cfg.resolved_superblock),
+        "stack": _init_segments(k_stack, cfg, cfg.resolved_superblock,
+                                cfg.n_super),
         "final_norm": norm_init(cfg.d_model, cfg.dtype, cfg.norm, key.device),
     }
     if not cfg.tie_embeddings:
@@ -171,14 +176,38 @@ def _remat(cfg, fn):
     return remat
 
 
+def _per_super(tree, shared, n_super, per_call=False):
+    """A segment's tree (its parameters or decode state) as one list of
+    layers a super-block, each a view: a repeated segment's layers
+    (leading axes ``(n_super, count)``, or ``(count,)``); a shared
+    segment's one tree, the same in every super-block, or with
+    ``per_call`` (a decode state, one a call site) its entry of a leading
+    ``(n_super,)`` axis when the super-block repeats."""
+    if shared:
+        if per_call and n_super > 1:
+            return [[t] for t in _tree_unbind(tree)]
+        return [[tree]] * n_super
+    if n_super > 1:
+        return [_tree_unbind(t) for t in _tree_unbind(tree)]
+    return [_tree_unbind(tree)]
+
+
 def apply_stack(params, cfg: ArchConfig, x, ctx):
+    """Every super-block in turn, its segments in order; remat (when on)
+    wraps each call of a block, shared or not."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for idx, (kind, _, _) in enumerate(cfg.resolved_superblock):
+    superblock = cfg.resolved_superblock
+    segments = []
+    for idx, (kind, _, shared) in enumerate(superblock):
         apply = get_block(kind).apply
         layer = _remat(cfg, lambda p, x, apply=apply: apply(p, x, ctx, cfg))
-        for p in _tree_unbind(params[_seg_key(idx)]):
-            x, a = layer(p, x)
-            aux = aux + a
+        segments.append((layer, _per_super(params[_seg_key(idx)], shared,
+                                           cfg.n_super)))
+    for sup in range(cfg.n_super):
+        for layer, layers in segments:
+            for p in layers[sup]:
+                x, a = layer(p, x)
+                aux = aux + a
     return x, aux
 
 
@@ -264,36 +293,51 @@ def per_example_loss(params, cfg: ArchConfig, batch, window=None):
 
 # ----------------------------------------------------------------- decode
 
+def _state_lead_dims(superblock, n_super, idx):
+    """A segment's leading state axes: a shared segment has one state a
+    call site, ``(n_super,)``; a repeated one one a layer."""
+    _, count, shared = superblock[idx]
+    if n_super > 1:
+        return (n_super,) if shared else (n_super, count)
+    return () if shared else (count,)
+
+
 def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int, dtype=None,
                       device=None):
     """Zero decode state mirroring the stack layout: per segment, each
-    leaf of the block's state with a leading layer axis."""
+    leaf of the block's state with the segment's leading axes."""
     check_ported(cfg)
     dtype = dtype or cfg.dtype
     device = resolve_device(device)
+    superblock = cfg.resolved_superblock
     states = {}
-    for idx, (kind, count, _) in enumerate(cfg.resolved_superblock):
+    for idx, (kind, _, _) in enumerate(superblock):
         state = get_block(kind).state
         if state is None:
             continue
         base = state(cfg, batch, cache_len, dtype, device)
+        lead = _state_lead_dims(superblock, cfg.n_super, idx)
         states[_seg_key(idx)] = tree_map(
-            lambda l: torch.zeros((count,) + l.shape, dtype=l.dtype,
+            lambda l: torch.zeros(lead + l.shape, dtype=l.dtype,
                                   device=device), base)
     return states
 
 
 def decode_stack(params, cfg: ArchConfig, x, states, pos, ctx):
     """Every layer's state is a view into the stacked state tensors, and
-    the blocks write their cache slots in place, so the stacked states
-    come back updated without a copy."""
-    for idx, (kind, _, _) in enumerate(cfg.resolved_superblock):
-        decode = get_block(kind).decode
+    the blocks write their states in place, so the stacked states come
+    back updated without a copy."""
+    segments = []
+    for idx, (kind, _, shared) in enumerate(cfg.resolved_superblock):
         key = _seg_key(idx)
-        seg = params[key]
-        for i in range(tree_leaves(seg)[0].shape[0]):
-            x, _ = decode(_tree_index(seg, i), x, _tree_index(states[key], i),
-                          pos, ctx, cfg)
+        segments.append((get_block(kind).decode,
+                         _per_super(params[key], shared, cfg.n_super),
+                         _per_super(states[key], shared, cfg.n_super,
+                                    per_call=True)))
+    for sup in range(cfg.n_super):
+        for decode, layers, layer_states in segments:
+            for p, st in zip(layers[sup], layer_states[sup]):
+                x, _ = decode(p, x, st, pos, ctx, cfg)
     return x, states
 
 

@@ -84,12 +84,17 @@ def _words(key, extra_dims: int):
     return key[..., 0].reshape(lead + pad), key[..., 1].reshape(lead + pad)
 
 
-def split(key, num: int = 2) -> torch.Tensor:
-    """``jax.random.split``: ``(..., 2)`` → ``(..., num, 2)``."""
+def split(key, num=2) -> torch.Tensor:
+    """``jax.random.split``: ``(..., 2)`` → ``(..., num, 2)``, or
+    ``(..., *num, 2)`` for a shape tuple ``num``. The counters run over
+    the flat index of the shape (JAX's ``iota_2x32_shape``), so a shape
+    gives the keys of the flat split, reshaped."""
+    shape = (num,) if isinstance(num, int) else tuple(num)
     k1, k2 = _words(key, 1)
-    counts = torch.arange(num, dtype=torch.int64, device=key.device)
+    counts = torch.arange(math.prod(shape), dtype=torch.int64,
+                          device=key.device)
     b1, b2 = threefry2x32(k1, k2, torch.zeros_like(counts), counts)
-    return torch.stack([b1, b2], dim=-1)
+    return torch.stack([b1, b2], dim=-1).reshape(key.shape[:-1] + shape + (2,))
 
 
 def fold_in(key, data) -> torch.Tensor:

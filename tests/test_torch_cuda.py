@@ -41,6 +41,9 @@ against the CPU; remat on against off bitwise, deterministic.
 K4 (the gated-linear-recurrence scan) against its plain sequential
 version on the same inputs: ``max|K4 − plain| ≤ 1e-4·max|plain|``, as in
 ``chip_smoke.py``; strided views bitwise equal to contiguous copies.
+The recurrent slice on the card: reduced zamba2 (its shared attention
+also at Dh = 80) and xlstm prefills through K4 and K3, and greedy
+decode, against the same calls on the CPU to ``rtol=atol=1e-4``.
 """
 
 import ctypes
@@ -511,6 +514,12 @@ K3_CASES = [  # (B, H, Hkv, S, T, Dh), causal, window, dtype
     ((2, 8, 2, 1, 300, 128), False, 0, torch.bfloat16),
     # Query tiles 1 and 2 (rows 128..299) see no key at all.
     ((1, 4, 2, 300, 40, 128), False, 16, torch.bfloat16),
+    # Dh = 80, zamba2-2.7b's shared attention (32 heads, MHA) in the
+    # Dh = 128 tile: ragged S, GQA with a window, and the f32 path.
+    ((2, 32, 32, 256, 256, 80), True, 0, torch.bfloat16),
+    ((1, 8, 2, 300, 300, 80), True, 64, torch.bfloat16),
+    ((2, 4, 2, 100, 40, 80), False, 16, torch.bfloat16),
+    ((1, 4, 4, 130, 130, 80), True, 0, torch.float32),
 ]
 
 
@@ -541,6 +550,7 @@ def test_k3_matches_plain_version(card, shape, causal, window, dtype):
 @pytest.mark.parametrize("shape,causal,window", [
     ((2, 8, 8, 512, 512, 64), True, 0),
     ((2, 12, 4, 700, 700, 128), True, 256),
+    ((2, 8, 8, 300, 300, 80), True, 0),
 ])
 def test_k3_is_deterministic(card, shape, causal, window):
     """Two launches on the same inputs give the same bits: no atomics,
@@ -596,6 +606,46 @@ def test_lm_slice_on_card_matches_cpu(card):
             steps.append((nxt.cpu(), step_logits.cpu()))
         out[dev] = (logits.cpu(), launched, steps)
     assert out["cpu"][1] == 0 and out["cuda"][1] == cfg.total_layers
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-4)
+    for (tc, lc), (tg, lg) in zip(out["cpu"][2], out["cuda"][2]):
+        assert torch.equal(tg, tc)
+        torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("zamba2-2.7b", {}), ("zamba2-2.7b", {"head_dim": 80}), ("xlstm-1.3b", {})],
+    ids=["zamba2", "zamba2-dh80", "xlstm"])
+def test_recurrent_slice_on_card_matches_cpu(card, name, kw):
+    """A reduced zamba2 (Mamba2 and the shared attention block, two
+    super-blocks) and a reduced xlstm (mLSTM and sLSTM), f32, chunk 16:
+    the kernel prefill on the card (K4 once a Mamba2 or mLSTM layer, K3
+    once a shared-block call) and 8 greedy decode steps agree with the
+    same calls on the CPU (the plain versions), ``rtol=atol=1e-4``."""
+    cfg = get_config(name).reduced().replace(use_flash=True, gla_chunk=16, **kw)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 40))
+    n_scan = cfg.n_super * sum(c for k, c, _ in cfg.resolved_superblock
+                               if k in ("mamba2", "mlstm"))
+    n_attn = cfg.n_super * sum(c for k, c, _ in cfg.resolved_superblock
+                               if k == "attn_mlp")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = transformer.init_lm(trandom.PRNGKey(0, device=dev), cfg)
+        tokens = torch.from_numpy(toks).to(dev)
+        before = (ssm_ops.launch_counts["gla_scan"],
+                  fa_ops.launch_counts["flash_attention"])
+        logits = make_prefill_step(cfg)(params, {"tokens": tokens})
+        launched = (ssm_ops.launch_counts["gla_scan"] - before[0],
+                    fa_ops.launch_counts["flash_attention"] - before[1])
+        serve = make_serve_step(cfg)
+        states = transformer.init_decode_state(cfg, 2, 8, device=dev)
+        tok, steps = tokens[:, :1], []
+        for pos in range(8):
+            nxt, step_logits, states = serve(params, tok, states, pos)
+            tok = nxt[:, None]
+            steps.append((nxt.cpu(), step_logits.cpu()))
+        out[dev] = (logits.cpu(), launched, steps)
+    assert out["cpu"][1] == (0, 0) and out["cuda"][1] == (n_scan, n_attn)
+    assert n_scan == 2 and n_attn == (2 if name == "zamba2-2.7b" else 0)
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-4)
     for (tc, lc), (tg, lg) in zip(out["cpu"][2], out["cuda"][2]):
         assert torch.equal(tg, tc)

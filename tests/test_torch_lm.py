@@ -272,14 +272,14 @@ def test_bf16_tree_runs_through_the_port():
 def test_unported_options_raise():
     _, tcfg = _cfgs()
     key = trandom.PRNGKey(0, device="cpu")
-    for bad in (tcfg.replace(superblock=(("mamba2", 2, False),)),
-                tcfg.replace(n_super=2),
+    for bad in (tcfg.replace(superblock=(("attn_moe", 2, False),)),
+                tcfg.replace(superblock=(("xattn", 2, False),)),
                 tcfg.replace(m_rope=True),
                 tcfg.replace(pos_embed="sinusoidal"),
-                tcfg.replace(superblock=(("attn_mlp", 1, True),))):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 steps 6 and 8"):
+                tcfg.replace(enc_dec=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 step 8"):
             tt.init_lm(key, bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 steps 6 and 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 step 8"):
         t_prefill(tcfg)({}, {"tokens": torch.zeros(1, 2, dtype=torch.long),
                              "vision_embeds": None})
 
