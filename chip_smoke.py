@@ -110,8 +110,10 @@ without printing its result line:
    exact zeros), zamba2-2.7b's shared attention at the same B and S
    (H = Hkv = 32, Dh = 80, causal, in the Dh = 128 tile), Dh = 80 with
    GQA 32/8 and a 256 window at a ragged S = T = 1,000, and Dh = 80 in
-   f32. Times K3 at the prefill, minitron-4b and zamba2-2.7b shapes,
-   flushed and warm,
+   f32, and the GQA shapes of deepseek-coder-33b (H = 56, Hkv = 8) and
+   llama4-scout (H = 40, Hkv = 8), Dh = 128, at the same B and S. Times
+   K3 at the prefill, minitron-4b, zamba2-2.7b, deepseek-coder-33b and
+   llama4-scout shapes, flushed and warm,
    beside the plain version, ``F.scaled_dot_product_attention`` and the
    bound, with the achieved TFLOP/s, the share of the bound, and the
    time the exponentials take at the MUFU rate (one ex2 per visible
@@ -189,11 +191,39 @@ without printing its result line:
    device's busy share, K4's and K3's shares of the device time), and
    the peak device memory. Each line
    carries the card's name and power limit.
-13. Prints the ``kernels`` JSON line (K1 and K2 also carry the engine,
+13. Zoo phase: the five decoder-only configs at full width, random bf16
+   weights from a seed, each at the depth one card holds beside its f32
+   copy: minitron-4b (all 32 layers), deepseek-coder-33b (4 of 62),
+   command-r-35b (4 of 40), phi3.5-moe-42b-a6.6b (6 of 32; 16 experts
+   top-2) and llama4-scout-17b-a16e (3 of 48; 16 experts top-1 and a
+   shared expert), in turn: init (seconds, parameters, peak memory); one
+   prefill of B = 8 x S = 2,048 through ``make_prefill_step`` with
+   ``use_flash=True``, the K3 count set to 0 before it and equal to the
+   layers after it, and one more timed; the plain bf16, f32 reference
+   and f32 K3-route prefills and the recurrent phase's rule, on every
+   row for a dense model; an MoE model's routing is logged
+   (``moe.routing_log``), and a row whose last token two routes sent to
+   other experts, or dropped in one, is not held (PERF.md §2); the
+   dropped share of the MoE dispatch's (token, k) assignments in the
+   prefills, in a prefill of uniform tokens and in decode, and each
+   layer's; decode replay of a 128-token prompt into a 256-slot cache,
+   held against the f32 reference prefill of the prompt (dense); for an
+   MoE model, against an f32 replay through the same serve step by the
+   same rule: first at a capacity that drops nothing (the floor the
+   prompt's prefill at that capacity; and f32 against the f32 prefill
+   of the prompt within 1e-2 of max|logit|), then at the decode step's
+   capacity of one assignment an expert (the floor the replays without
+   drops); then 32 greedy steps. One phi3.5-moe prefill under
+   ``torch.profiler`` (host and device): K3, the MoE layer's router,
+   dispatch, expert products and combine (its ``torch.profiler``
+   ranges), and the rest, as shares of the device time. Each line
+   carries the card's name and power limit.
+14. Prints the ``kernels`` JSON line (K1 and K2 also carry the engine,
    faults and serve phases' counts, ``engine_launches``,
    ``faults_launches`` and ``serve_launches``; K2 the train phase's,
    ``train_launches``, and its time at that shape, ``train_shape``; K3
-   and K4 the recurrent phase's, ``recurrent_launches``; K4's
+   and K4 the recurrent phase's, ``recurrent_launches``; K3 the zoo
+   phase's, ``zoo_launches``; K4's
    ``launches`` are the recurrent prefills', its K4 phase's count
    ``phase_launches``), then the result line.
 
@@ -1233,8 +1263,21 @@ K3_CASES = (  # label, (B, H, Hkv, S, T, Dh), causal, window, dtype name
     ("zamba2-2.7b", (LM_BATCH, 32, 32, LM_SEQ, LM_SEQ, 80), True, 0, "bfloat16"),
     ("Dh=80 GQA window", (2, 32, 8, 1000, 1000, 80), True, 256, "bfloat16"),
     ("Dh=80 f32", (2, 8, 8, 300, 300, 80), True, 0, "float32"),
+    # The zoo phase's other prefills, heads of 128: deepseek_coder_33b.py
+    # (56 heads over 8 kv heads), llama4_scout_17b.py (40 over 8),
+    # command_r_35b.py (64 over 8) and phi35_moe_42b.py (32 over 8), the
+    # GQA ratios 7, 5, 8 and 4.
+    ("deepseek-coder-33b", (LM_BATCH, 56, 8, LM_SEQ, LM_SEQ, 128), True, 0,
+     "bfloat16"),
+    ("llama4-scout-17b", (LM_BATCH, 40, 8, LM_SEQ, LM_SEQ, 128), True, 0,
+     "bfloat16"),
+    ("command-r-35b", (LM_BATCH, 64, 8, LM_SEQ, LM_SEQ, 128), True, 0,
+     "bfloat16"),
+    ("phi3.5-moe-42b", (LM_BATCH, 32, 8, LM_SEQ, LM_SEQ, 128), True, 0,
+     "bfloat16"),
 )
-K3_TIMED = ("prefill shape", "minitron-4b", "zamba2-2.7b")
+K3_TIMED = ("prefill shape", "minitron-4b", "zamba2-2.7b", "deepseek-coder-33b",
+            "llama4-scout-17b", "command-r-35b", "phi3.5-moe-42b")
 # MUFU ex2 results a clock per SM on compute capability 9.0 (CUDA C++
 # programming guide, arithmetic instruction throughput).
 MUFU_PER_CLOCK = 16
@@ -1561,6 +1604,11 @@ def k4_phase(torch, ssm_ops, ssm_ref, chunked_gla, peaks):
 def dist(a, b):
     """The largest absolute difference of two logit tensors."""
     return (a.float() - b.float()).abs().max().item()
+
+
+def row_dists(a, b):
+    """The largest absolute difference of each row of two logit tensors."""
+    return (a.float() - b.float()).abs().amax(dim=-1)
 
 
 def argmax_agrees(got, ref, floor):
@@ -2048,6 +2096,15 @@ REC_TIMED, REC_PROMPT, REC_CACHE, REC_GREEDY = 1, 128, 256, 32
 REC_F32_TOL = 1e-2
 
 
+def timed(torch, fn):
+    """``fn()`` and its wall ms, the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 def recurrent_model(torch, rt, fa_ops, ssm_ops, card, name, n_k4, n_k3,
                     n_params):
     """One recurrent model at full width: the kernel prefill counted and
@@ -2085,18 +2142,11 @@ def recurrent_model(torch, rt, fa_ops, ssm_ops, card, name, n_k4, n_k3,
     reference = make_prefill_step(ref_cfg)
     kernel32 = make_prefill_step(cfg.replace(dtype_name="float32"))
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
     with torch.no_grad():
         # The main path: one kernel prefill, counted from 0.
         fa_ops.reset_launch_counts()
         ssm_ops.reset_launch_counts()
-        flash, first_ms = timed(lambda: prefill(params, {"tokens": tokens}))
+        flash, first_ms = timed(torch, lambda: prefill(params, {"tokens": tokens}))
         launches = {"gla_scan": ssm_ops.launch_counts["gla_scan"],
                     "flash_attention": fa_ops.launch_counts["flash_attention"]}
         check(launches == {"gla_scan": n_k4, "flash_attention": n_k3},
@@ -2105,7 +2155,7 @@ def recurrent_model(torch, rt, fa_ops, ssm_ops, card, name, n_k4, n_k3,
         check(flash.shape == (LM_BATCH, cfg.vocab)
               and bool(torch.isfinite(flash).all()),
               f"{name} kernel prefill logits not finite or of the wrong shape")
-        ms = [first_ms] + [timed(lambda: prefill(params, {"tokens": tokens}))[1]
+        ms = [first_ms] + [timed(torch, lambda: prefill(params, {"tokens": tokens}))[1]
                            for _ in range(REC_TIMED)]
         print(f"rec prefill {name} (use_flash: K4, K3): B={LM_BATCH} "
               f"S={LM_SEQ}: " + " ".join(f"{m:.2f}" for m in ms)
@@ -2113,10 +2163,10 @@ def recurrent_model(torch, rt, fa_ops, ssm_ops, card, name, n_k4, n_k3,
               f"{LM_BATCH * LM_SEQ / min(ms[1:]) * 1e3:,.0f} tokens/s (best "
               f"timed) [{card}]")
 
-        plain_logits, plain_ms = timed(lambda: plain(params, {"tokens": tokens}))
+        plain_logits, plain_ms = timed(torch, lambda: plain(params, {"tokens": tokens}))
         plain_prompt = plain(params, {"tokens": prompt})
         params32 = tree_map(lambda x: x.float(), params)
-        ref_logits, ref_ms = timed(lambda: reference(params32, {"tokens": tokens}))
+        ref_logits, ref_ms = timed(torch, lambda: reference(params32, {"tokens": tokens}))
         ref_prompt = reference(params32, {"tokens": prompt})
         k32_logits = kernel32(params32, {"tokens": tokens})
         del params32
@@ -2219,6 +2269,417 @@ def recurrent_phase(torch, rt, fa_ops, ssm_ops, card):
     return counts
 
 
+# Zoo phase: the five decoder-only configs at full width, each at the
+# depth one card holds with its f32 copy for the reference (the bf16
+# weights, then 2x them in f32): name, layers on the card, parameters at
+# that depth. The decode prompt, cache and greedy steps are REC_*'s.
+ZOO_MODELS = (
+    ("minitron-4b", 32, 4_190_309_376),
+    ("deepseek-coder-33b", 4, 2_583_755_776),
+    ("command-r-35b", 4, 7_013_023_744),
+    ("phi3.5-moe-42b-a6.6b", 6, 8_064_520_192),
+    ("llama4-scout-17b-a16e", 3, 8_675_281_920),
+)
+ZOO_PROFILED = "phi3.5-moe-42b-a6.6b"
+# The MoE layer's parts, each a torch.profiler range in
+# repro_torch/models/moe.py.
+MOE_RANGES = ("moe_router", "moe_dispatch", "moe_experts", "moe_combine")
+# Dropped shares of a prefill's (token, k) assignments. A router that
+# sends every token to one set of top-k experts drops 1 - 1.25 k / 16 at
+# a capacity of 1.25x the mean load: 84 % (phi3.5) or 92 % (llama4). The
+# Zipf-Markov tokens of make_lm_tokens repeat their most frequent ids,
+# and a repeated id routes alike, so their prefill drops 36-45 % (an
+# H100 run, PERF.md §6); tokens drawn uniformly over the vocabulary are
+# the measure of the router itself.
+ZOO_MAX_DROPPED = 0.75
+ZOO_MAX_UNIFORM_DROPPED = 0.25
+
+
+def flipped_rows(torch, log_a, log_b, n_layers):
+    """The rows of the batch whose last token two runs routed differently:
+    in one of the last ``n_layers`` entries of their ``moe.routing_log``
+    (a prefill's layers, or a replay's last step) a chosen expert or a
+    drop differs. All False for a dense model (empty logs)."""
+    rows = torch.zeros(LM_BATCH, dtype=torch.bool, device=DEVICE)
+    for (ea, ka), (eb, kb) in zip(log_a[-n_layers:], log_b[-n_layers:]):
+        rows |= ((ea != eb) | (ka != kb)).any(-1).reshape(LM_BATCH, -1)[:, -1]
+    return rows
+
+
+def routing_diffs(torch, log_a, log_b):
+    """For each row of the batch, how many (layer, position) or (step,
+    layer) entries of two routing logs route it differently."""
+    counts = torch.zeros(LM_BATCH, dtype=torch.int64, device=DEVICE)
+    for (ea, ka), (eb, kb) in zip(log_a, log_b):
+        counts += ((ea != eb) | (ka != kb)).any(-1).reshape(
+            LM_BATCH, -1).sum(-1)
+    return counts.tolist()
+
+
+def hold_unflipped(label, rows, flips, floor_rows, floor_flips, least, card):
+    """The reference rule on the rows that no routing flip moved: the
+    largest distance of ``rows`` outside ``flips`` within 2x the largest
+    of ``floor_rows`` outside ``floor_flips``, each taken over at least
+    ``least`` rows. Returns (distance, floor)."""
+    n, n_floor = int((~flips).sum()), int((~floor_flips).sum())
+    err = rows[~flips].max().item() if n else float("inf")
+    floor = floor_rows[~floor_flips].max().item() if n_floor else 0.0
+    print(f"{label}: row distances {[round(x, 4) for x in rows.tolist()]}, "
+          f"a flip moved rows {flips.nonzero()[:, 0].tolist()}; the floor's "
+          f"{[round(x, 4) for x in floor_rows.tolist()]}, flipped "
+          f"{floor_flips.nonzero()[:, 0].tolist()}; largest of the {n} rows "
+          f"held {err:.4g} <= 2x the floor {floor:.4g} (largest of {n_floor} "
+          f"rows) [{card}]")
+    check(n >= least and n_floor >= least, f"{label}: routing flips moved "
+          f"{LM_BATCH - n} of {LM_BATCH} rows ({LM_BATCH - n_floor} on the "
+          f"floor's route), more than {LM_BATCH - least}")
+    check(err <= 2 * floor, f"{label}: {err:.4g} on the rows held, above 2x "
+          f"the bf16 floor {floor:.4g}")
+    return err, floor
+
+
+def dispatch_layers(torch, log, n_experts):
+    """Each layer's dropped share, its busiest expert's load over the mean
+    load, and the number of experts it routed to, from a routing log."""
+    out = []
+    for top_e, keep in log:
+        load = torch.bincount(top_e.reshape(-1), minlength=n_experts)
+        out.append(((~keep).float().mean().item(),
+                    load.max().item() * n_experts / top_e.numel(),
+                    int((load > 0).sum())))
+    return out
+
+
+def moe_profile(torch, label, fn, card):
+    """One call of ``fn`` under ``torch.profiler`` (host and device, the
+    host's operator tree gives each kernel its MoE range): the device
+    time of K3, of each range of ``MOE_RANGES`` and of the rest, and
+    their shares of the device's busy time."""
+    act = torch.profiler.ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # Kernel rows only; a range's own device-side row is not a kernel.
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key not in MOE_RANGES]
+    busy_us = sum(r[1] for r in rows)
+    check(busy_us > 0, f"profile {label}: the profiler saw no device time")
+    parts = {name: sum(e.device_time_total for e in prof.events()
+                       if e.name == name
+                       and e.device_type == torch.autograd.DeviceType.CPU)
+             for name in MOE_RANGES}
+    parts["K3"] = sum(us for n, us, _ in rows if "flash_attention" in n)
+    rest = busy_us - sum(parts.values())
+    print(f"profile {label}: wall {wall_us / 1e3:.2f} ms, device busy "
+          f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f} % of wall), "
+          f"{sum(r[2] for r in rows)} device ops [{card}]")
+    for name, us in list(parts.items()) + [("rest", rest)]:
+        print(f"profile {label}:   {name:<13} {us / 1e3:9.3f} ms "
+              f"{100 * us / busy_us:5.1f} %")
+    for name, us, count in sorted(rows, key=lambda r: -r[1])[:6]:
+        print(f"profile {label}:   top kernel {100 * us / busy_us:5.1f} %  "
+              f"{us / 1e3:8.3f} ms  x{count:<5} {name[:80]}")
+
+
+def zoo_model(torch, rt, fa_ops, card, name, n_layers, n_params):
+    """One decoder-only config at full width and ``n_layers`` layers: the
+    K3 prefill counted and timed, the plain bf16, f32 reference and f32
+    kernel-route prefills, the MoE dispatch's dropped shares, decode
+    replay and greedy decode. Returns the counted K3 launches."""
+    from repro_torch._tree import tree_map
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import moe, transformer
+
+    cfg = rt.configs.get_config(name).replace(n_layers=n_layers, use_flash=True)
+    plain_cfg = cfg.replace(use_flash=False)
+    ref_cfg = plain_cfg.replace(dtype_name="float32")
+    is_moe = cfg.n_experts > 0
+    t0_model = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms = timed(torch, lambda: transformer.init_lm(
+        rt.random.PRNGKey(0, device=DEVICE), cfg))
+    count = rt.models.count_params(params)
+    check(count == n_params, f"{name} has {count} parameters, not {n_params}")
+    moe_text = (f", {cfg.n_experts} experts top-{cfg.top_k}"
+                f"{' + a shared expert' if cfg.shared_expert else ''}, "
+                f"capacity factor {cfg.moe_capacity_factor}" if is_moe else "")
+    print(f"zoo init: {name} at full width, {n_layers} of "
+          f"{rt.configs.get_config(name).n_layers} layers (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} kv heads "
+          f"of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
+          f"{moe_text}), {count:,} parameters ({2 * count / 1e9:.2f} GB bf16) "
+          f"in {init_ms / 1e3:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+
+    data = rt.data.make_lm_tokens(0, LM_BATCH, LM_SEQ, cfg.vocab).tokens
+    tokens = torch.from_numpy(data[:, :LM_SEQ]).to(DEVICE)
+    prompt = tokens[:, :REC_PROMPT]
+    prefill = make_prefill_step(cfg)
+    plain = make_prefill_step(plain_cfg)
+    reference = make_prefill_step(ref_cfg)
+    kernel32 = make_prefill_step(cfg.replace(dtype_name="float32"))
+    shares, logs = {}, {}
+
+    def dropped(label, fn):
+        """``fn()`` with the MoE dispatch counted and every layer's
+        routing logged, both kept under ``label``."""
+        moe.reset_dispatch_counts()
+        moe.routing_log = []
+        try:
+            out = fn()
+        finally:
+            logs[label], moe.routing_log = moe.routing_log, None
+        shares[label] = moe.dropped_share()
+        return out
+
+    with torch.no_grad():
+        # The main path: one K3 prefill, counted from 0.
+        fa_ops.reset_launch_counts()
+        flash, first_ms = dropped("prefill", lambda: timed(
+            torch, lambda: prefill(params, {"tokens": tokens})))
+        launches = fa_ops.launch_counts["flash_attention"]
+        check(launches == n_layers, f"{name} prefill: {launches} K3 launches, "
+              f"expected {n_layers}")
+        check(flash.shape == (LM_BATCH, cfg.vocab)
+              and bool(torch.isfinite(flash).all()),
+              f"{name} K3 prefill logits not finite or of the wrong shape")
+        ms = [first_ms] + [timed(torch, lambda: prefill(
+            params, {"tokens": tokens}))[1] for _ in range(REC_TIMED)]
+        print(f"zoo prefill {name} (use_flash: K3): B={LM_BATCH} S={LM_SEQ}: "
+              + " ".join(f"{m:.2f}" for m in ms) + f" ms (the first counted: "
+              f"{launches} K3 launches), {LM_BATCH * LM_SEQ / min(ms[1:]) * 1e3:,.0f} "
+              f"tokens/s (best timed) [{card}]")
+
+        plain_logits, plain_ms = dropped("plain", lambda: timed(
+            torch, lambda: plain(params, {"tokens": tokens})))
+        plain_prompt = dropped("plain prompt", lambda: plain(
+            params, {"tokens": prompt}))
+        params32 = tree_map(lambda x: x.float(), params)
+        ref_logits, ref_ms = dropped("reference", lambda: timed(
+            torch, lambda: reference(params32, {"tokens": tokens})))
+        ref_prompt = dropped("reference prompt", lambda: reference(
+            params32, {"tokens": prompt}))
+        k32_logits = kernel32(params32, {"tokens": tokens})
+        if not is_moe:
+            del params32
+    torch.cuda.empty_cache()
+    # The reference rule, on the last position's logits. An MoE router
+    # flips an expert where two of its logits nearly tie, in one route and
+    # not the other, and moves that token's output by a whole expert's.
+    # So a row whose last token the two routes sent to other experts, or
+    # dropped in one and not the other, in any layer, is not held; every
+    # other row is, on its largest distance, and at least half the rows
+    # must be held. A dense model has no flips: every row is held.
+    top = ref_logits.abs().max().item()
+    print(f"zoo reference {name}: plain bf16 prefill {plain_ms:.2f} ms, f32 "
+          f"reference {ref_ms:.2f} ms; last-position logits (max |logit| "
+          f"{top:.3g}) from the f32 reference [{card}]")
+    held = ~flipped_rows(torch, logs["prefill"], logs["reference"], n_layers)
+    _, floor = hold_unflipped(
+        f"zoo reference {name}", row_dists(flash, ref_logits), ~held,
+        row_dists(plain_logits, ref_logits),
+        flipped_rows(torch, logs["plain"], logs["reference"], n_layers),
+        LM_BATCH // 2, card)
+    agree, rows = argmax_agrees(flash[held], ref_logits[held], floor)
+    print(f"zoo reference {name}: argmax agrees {agree} on the {rows} rows "
+          f"held whose top-two gap exceeds 2x the floor [{card}]")
+    check(agree, f"{name} K3 prefill argmax differs from the f32 reference "
+          f"on a row whose top-two gap exceeds 2x the floor")
+    err32 = dist(k32_logits, ref_logits)
+    agree, rows = argmax_agrees(k32_logits, ref_logits, err32)
+    print(f"zoo f32 kernels {name}: the K3 route in f32 with the f32 weights "
+          f"{err32:.4g} from the f32 reference ({err32 / top:.3g} of "
+          f"max|logit|, bound {REC_F32_TOL}); argmax agrees {agree} on the "
+          f"{rows} of {LM_BATCH} rows whose top-two gap exceeds 2x that "
+          f"[{card}]")
+    check(err32 <= REC_F32_TOL * top and agree,
+          f"{name} f32 K3 prefill {err32:.4g} from the f32 reference "
+          f"(bound {REC_F32_TOL} x {top:.4g}), argmax agrees {agree}")
+
+    serve = make_serve_step(cfg)
+    cache_len = transformer.decode_cache_len(cfg, REC_CACHE)
+
+    def replay(c, p):
+        """The prompt fed token by token through ``c``'s serve step."""
+        step = make_serve_step(c)
+        states = transformer.init_decode_state(c, LM_BATCH, cache_len,
+                                               device=DEVICE)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for pos in range(REC_PROMPT):
+                nxt, logits, states = step(p, prompt[:, pos:pos + 1], states,
+                                           pos)
+            torch.cuda.synchronize()
+        return nxt, logits, states, (time.perf_counter() - t0) / REC_PROMPT * 1e3
+
+    # A dense model's decode is held against the f32 prefill of its
+    # prompt by the rule above. An MoE decode step routes the batch's 8
+    # tokens with a capacity of 8·k·1.25 // 16 = 1 an expert (the
+    # prefill's: 1,280 or more): most assignments drop, by the JAX
+    # package's semantics, and the 8 rows compete for the experts, so a
+    # flip in one row can drop another row's assignment, and the flips
+    # of earlier steps stay in the cache. So the replays are held in two
+    # steps, each by the rule above. First at a capacity that drops
+    # nothing (factor n_experts): the bf16 replay against an f32 replay
+    # through the same serve step, on the rows whose last step the two
+    # routed alike (at least half), within 2x the floor of the prompt's
+    # bf16 prefill at that capacity; and the f32 replay within
+    # REC_F32_TOL of the f32 prefill of the prompt (decode equals prefill
+    # without drops, the moe case of tests/test_decode_consistency.py).
+    # Then at capacity 1: the bf16 replay against the f32 replay on the
+    # rows whose last step the two routed alike (at least 2), within 2x
+    # the largest distance of a bf16 replay from an f32 one without drops
+    # on the rows held there.
+    nxt, logits, states, replay_ms = dropped(
+        "decode", lambda: replay(cfg, params))
+    if is_moe:
+        _, logits32, _, ref_replay_ms = dropped(
+            "f32 decode", lambda: replay(ref_cfg, params32))
+        whole = dict(moe_capacity_factor=float(cfg.n_experts))
+        c16, c32 = cfg.replace(**whole), ref_cfg.replace(**whole)
+        with torch.no_grad():
+            want = dropped("whole reference prompt", lambda: make_prefill_step(
+                c32)(params32, {"tokens": prompt}))
+            whole_plain = dropped("whole plain prompt", lambda: make_prefill_step(
+                plain_cfg.replace(**whole))(params, {"tokens": prompt}))
+        _, got16, _, _ = dropped("whole decode", lambda: replay(c16, params))
+        _, got32, _, _ = dropped("whole f32 decode",
+                                 lambda: replay(c32, params32))
+        check(shares["whole decode"] == shares["whole f32 decode"] == 0.0,
+              f"{name}: a replay at capacity factor {cfg.n_experts} dropped "
+              f"assignments")
+        del params32
+        torch.cuda.empty_cache()
+        print(f"zoo decode without drops {name}: capacity factor "
+              f"{cfg.n_experts}, the replays' logits at position "
+              f"{REC_PROMPT - 1}, bf16 from f32 [{card}]")
+        whole_rows = row_dists(got16, got32)
+        whole_flips = flipped_rows(torch, logs["whole decode"],
+                                   logs["whole f32 decode"], n_layers)
+        hold_unflipped(
+            f"zoo decode without drops {name}", whole_rows, whole_flips,
+            row_dists(whole_plain, want),
+            flipped_rows(torch, logs["whole plain prompt"],
+                         logs["whole reference prompt"], n_layers),
+            LM_BATCH // 2, card)
+        err32, top_p = dist(got32, want), want.abs().max().item()
+        agree, rows = argmax_agrees(got32, want, err32)
+        print(f"zoo decode without drops {name}: f32 from the f32 prefill of "
+              f"the prompt {err32:.4g} ({err32 / top_p:.3g} of max|logit|, "
+              f"bound {REC_F32_TOL}), argmax agrees {agree} on {rows} rows "
+              f"[{card}]")
+        check(err32 <= REC_F32_TOL * top_p and agree,
+              f"{name} f32 decode without drops {err32:.4g} from the f32 "
+              f"prefill (bound {REC_F32_TOL} x {top_p:.4g})")
+        print(f"zoo decode replay {name}: {REC_PROMPT} prompt tokens one at a "
+              f"time through make_serve_step (cache {cache_len}), "
+              f"{replay_ms:.2f} ms/step; logits at position {REC_PROMPT - 1} "
+              f"from an f32 replay ({ref_replay_ms:.2f} ms/step), the floor "
+              f"the replays without drops; (step, layer) entries routed "
+              f"otherwise, a row: {routing_diffs(torch, logs['decode'], logs['f32 decode'])}"
+              f" of {REC_PROMPT * n_layers} [{card}]")
+        held = ~flipped_rows(torch, logs["decode"], logs["f32 decode"],
+                             n_layers)
+        _, floor_d = hold_unflipped(
+            f"zoo decode replay {name}", row_dists(logits, logits32), ~held,
+            whole_rows, whole_flips, 2, card)
+        agree, rows = argmax_agrees(logits[held], logits32[held], floor_d)
+        print(f"zoo decode replay {name}: argmax agrees {agree} on the {rows} "
+              f"rows held whose top-two gap exceeds 2x the floor [{card}]")
+        check(agree, f"{name} decode argmax differs from the f32 replay on a "
+              f"row held whose top-two gap exceeds 2x the floor")
+    else:
+        floor_p = dist(plain_prompt, ref_prompt)
+        err_p = dist(logits, ref_prompt)
+        agree, rows = argmax_agrees(logits, ref_prompt, floor_p)
+        print(f"zoo decode replay {name}: {REC_PROMPT} prompt tokens one at a "
+              f"time through make_serve_step (cache {cache_len}), "
+              f"{replay_ms:.2f} ms/step; logits at position {REC_PROMPT - 1} "
+              f"from the f32 reference prefill of those tokens {err_p:.4g} "
+              f"(<= 2x the floor {floor_p:.4g}); argmax agrees {agree} on the "
+              f"{rows} rows above 2x the floor [{card}]")
+        check(err_p <= 2 * floor_p, f"{name} decode at position "
+              f"{REC_PROMPT - 1}: {err_p:.4g} from the f32 reference, above "
+              f"2x the floor {floor_p:.4g}")
+        check(agree, f"{name} decode argmax differs from the f32 reference "
+              f"on a row whose top-two gap exceeds 2x the floor")
+
+    tok, first = nxt[:, None], []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(REC_PROMPT, REC_PROMPT + REC_GREEDY):
+            nxt, logits, states = serve(params, tok, states, pos)
+            tok = nxt[:, None]
+            first.append(nxt)
+        torch.cuda.synchronize()
+        greedy_ms = (time.perf_counter() - t0) / REC_GREEDY * 1e3
+    check(bool(torch.isfinite(logits).all()), f"{name} decode logits not finite")
+    print(f"zoo decode {name}: {REC_GREEDY} greedy steps at positions "
+          f"{REC_PROMPT}..{REC_PROMPT + REC_GREEDY - 1}, {greedy_ms:.2f} ms/step "
+          f"({LM_BATCH * 1e3 / greedy_ms:.0f} tokens/s); tokens of row 0: "
+          f"{[int(t[0]) for t in first[:8]]} [{card}]")
+    if is_moe:
+        t_pre = LM_BATCH * LM_SEQ
+        caps = [int(max(1, (t * cfg.top_k * cfg.moe_capacity_factor)
+                        // cfg.n_experts)) for t in (t_pre, LM_BATCH)]
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        uniform = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), device=DEVICE,
+                                generator=gen)
+        with torch.no_grad():
+            dropped("uniform", lambda: prefill(params, {"tokens": uniform}))
+        print(f"zoo moe dispatch {name}: dropped (token, k) assignments: K3 "
+              f"prefill {100 * shares['prefill']:.2f} %, f32 reference prefill "
+              f"{100 * shares['reference']:.2f} %, K3 prefill of uniform "
+              f"tokens {100 * shares['uniform']:.2f} % (capacity {caps[0]} an "
+              f"expert of {t_pre * cfg.top_k} assignments); decode replay "
+              f"{100 * shares['decode']:.2f} %, f32 replay "
+              f"{100 * shares['f32 decode']:.2f} % (capacity {caps[1]} of "
+              f"{LM_BATCH * cfg.top_k} a step) [{card}]")
+        for label, text in (("prefill", "Zipf-Markov"), ("uniform", "uniform")):
+            layers = dispatch_layers(torch, logs[label], cfg.n_experts)
+            print(f"zoo moe dispatch {name}: the K3 prefill of {text} tokens, "
+                  f"each layer's dropped share | busiest expert's load over "
+                  f"the mean | experts used: " + ", ".join(
+                      f"{100 * d:.1f} % | {m:.2f} | {u}" for d, m, u in layers)
+                  + f" [{card}]")
+        check(all(u == cfg.n_experts for _, _, u in layers),
+              f"{name}: a layer of the uniform tokens' prefill left an "
+              f"expert idle")
+        check(shares["prefill"] < ZOO_MAX_DROPPED
+              and shares["uniform"] < ZOO_MAX_UNIFORM_DROPPED,
+              f"{name}: the prefill dropped {shares['prefill']:.3f} of its "
+              f"assignments, {shares['uniform']:.3f} of uniform tokens'")
+    if name == ZOO_PROFILED:
+        with torch.no_grad():
+            moe_profile(torch, f"zoo prefill {name}",
+                        lambda: prefill(params, {"tokens": tokens}), card)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"zoo phase {name}: peak device memory {peak:.2f} GB; "
+          f"{time.perf_counter() - t0_model:.1f} s [{card}]")
+    del params, states
+    torch.cuda.empty_cache()
+    return launches
+
+
+def zoo_phase(torch, rt, fa_ops, card):
+    """minitron-4b, deepseek-coder-33b, command-r-35b, phi3.5-moe and
+    llama4-scout served at full width (random bf16 weights from seed 0),
+    each at the depth of ``ZOO_MODELS``: K3 once a layer a prefill."""
+    phase_t0 = time.perf_counter()
+    counts = {name: zoo_model(torch, rt, fa_ops, card, name, *rest)
+              for name, *rest in ZOO_MODELS}
+    print(f"zoo phase: took {time.perf_counter() - phase_t0:.1f} s [{card}]")
+    return counts
+
+
 def load_port():
     """Import the port from ``./src``."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -2304,6 +2765,7 @@ def main():
                                          peaks, card)
     del lm_params
     rec_counts = recurrent_phase(torch, rt, fa_ops, ssm_ops, card)
+    zoo_counts = zoo_phase(torch, rt, fa_ops, card)
 
     names = {"k1": ("masked_scaled_aggregate", SOURCE,
                     "src/repro/kernels/aggregate/aggregate.py:77"),
@@ -2344,6 +2806,8 @@ def main():
             # The recurrent phase's prefills, each counted from 0.
             kernels[-1]["recurrent_launches"] = {
                 name: c["flash_attention"] for name, c in rec_counts.items()}
+            # The zoo phase's prefills, each counted from 0.
+            kernels[-1]["zoo_launches"] = zoo_counts
     # K4's main path is the two recurrent models' prefills: its launches
     # are theirs, counted from 0 before each. Its times and bound are the
     # K4 phase's, one scan at each layer's shape (the sums over both; each

@@ -24,30 +24,34 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
+def _walk(node, path, leaves):
+    if node is None:
+        return ("none",)
+    if isinstance(node, dict):
+        keys = tuple(sorted(node))
+        return ("dict", keys,
+                tuple(_walk(node[k], path + (k,), leaves) for k in keys))
+    if _is_namedtuple(node):
+        return ("namedtuple", type(node),
+                tuple(_walk(c, path + (f,), leaves)
+                      for f, c in zip(node._fields, node)))
+    if isinstance(node, (tuple, list)):
+        return (type(node).__name__,
+                tuple(_walk(c, path + (i,), leaves)
+                      for i, c in enumerate(node)))
+    leaves.append((path, node))
+    return ("leaf",)
+
+
 def tree_flatten_with_path(tree) -> tuple[list[tuple[tuple, Any]], Any]:
     """``tree`` → ([(path, leaf), ...], treedef); ``treedef`` is
     hashable and ``path`` is a tuple of dict keys, NamedTuple field
     names and sequence indices."""
+    # The recursion is a module function: a nested one would hold itself
+    # and the leaves in a reference cycle, which keeps every leaf (a
+    # model's weights) alive until the garbage collector runs.
     leaves: list = []
-
-    def walk(node, path):
-        if node is None:
-            return ("none",)
-        if isinstance(node, dict):
-            keys = tuple(sorted(node))
-            return ("dict", keys,
-                    tuple(walk(node[k], path + (k,)) for k in keys))
-        if _is_namedtuple(node):
-            return ("namedtuple", type(node),
-                    tuple(walk(c, path + (f,))
-                          for f, c in zip(node._fields, node)))
-        if isinstance(node, (tuple, list)):
-            return (type(node).__name__,
-                    tuple(walk(c, path + (i,)) for i, c in enumerate(node)))
-        leaves.append((path, node))
-        return ("leaf",)
-
-    return leaves, walk(tree, ())
+    return leaves, _walk(tree, (), leaves)
 
 
 def key_str(path) -> str:
@@ -61,23 +65,22 @@ def tree_flatten(tree) -> tuple[list, Any]:
     return [leaf for _, leaf in leaves], treedef
 
 
+def _build(d, it):
+    kind = d[0]
+    if kind == "leaf":
+        return next(it)
+    if kind == "none":
+        return None
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(d[1], d[2])}
+    if kind == "namedtuple":
+        return d[1](*(_build(c, it) for c in d[2]))
+    children = [_build(c, it) for c in d[1]]
+    return tuple(children) if kind == "tuple" else children
+
+
 def tree_unflatten(treedef, leaves):
-    it = iter(leaves)
-
-    def build(d):
-        kind = d[0]
-        if kind == "leaf":
-            return next(it)
-        if kind == "none":
-            return None
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(d[1], d[2])}
-        if kind == "namedtuple":
-            return d[1](*(build(c) for c in d[2]))
-        children = [build(c) for c in d[1]]
-        return tuple(children) if kind == "tuple" else children
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def tree_leaves(tree) -> list:

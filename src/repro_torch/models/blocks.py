@@ -1,8 +1,10 @@
 """Residual blocks — the units the stacks loop over.
 
 Port of ``repro.models.blocks`` for the ``attn_mlp`` block (pre-norm
-attention + MLP) and the recurrent kinds ``mamba2``, ``mlstm`` and
-``slstm`` (:mod:`repro_torch.models.ssm`). Each kind provides::
+attention + MLP), the ``attn_moe`` block (pre-norm attention +
+Mixture-of-Experts FFN, :mod:`repro_torch.models.moe`) and the
+recurrent kinds ``mamba2``, ``mlstm`` and ``slstm``
+(:mod:`repro_torch.models.ssm`). Each kind provides::
 
     init_<kind>(key, cfg)                     -> params
     apply_<kind>(params, x, ctx, cfg)         -> (x, aux)
@@ -10,8 +12,8 @@ attention + MLP) and the recurrent kinds ``mamba2``, ``mlstm`` and
     decode_<kind>(params, x, state, pos, ctx, cfg)     -> (x, state)
 
 ``ctx`` is a dict with: positions, window, use_flash (the prefill's
-attention through K3 and its scan through K4). The other kinds of the
-JAX package (attn_moe, enc_attn_mlp, xattn) come with their configs;
+attention through K3 and its scan through K4). The encoder-decoder
+kinds of the JAX package (enc_attn_mlp, xattn) come with whisper-tiny;
 :func:`get_block` raises ``NotImplementedError`` for them. A decode step
 writes the block's state in place and returns it.
 """
@@ -37,8 +39,12 @@ from repro_torch.models.common import (
     dense_init,
     norm_init,
 )
+from repro_torch.models.moe import apply_moe, init_moe
 
-#: Where the parts of the LM zoo the port does not run yet are queued.
+#: Where the parts of the LM zoo the port does not run yet are queued:
+#: vision tokens and M-RoPE (qwen2-vl-2b), the encoder-decoder with its
+#: ``enc_attn_mlp`` and ``xattn`` blocks, and sinusoidal positions
+#: (whisper-tiny).
 NOT_PORTED = "ROADMAP Queue 1 step 8"
 
 
@@ -113,6 +119,53 @@ def decode_attn_mlp(params, x, state, pos, ctx, cfg):
     h = apply_norm(params["ln2"], x, cfg.norm)
     x = x + apply_mlp(params["mlp"], h, act=cfg.act)
     return x, state
+
+
+# --------------------------------------------------------------- attn_moe
+
+def init_attn_moe(key, cfg):
+    k1, k2 = trandom.split(key)
+    return {
+        "ln1": norm_init(cfg.d_model, cfg.dtype, cfg.norm, key.device),
+        "attn": init_attention(k1, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.resolved_head_dim, cfg.dtype, cfg.use_bias),
+        "ln2": norm_init(cfg.d_model, cfg.dtype, cfg.norm, key.device),
+        "moe": init_moe(k2, cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.dtype,
+                        cfg.use_bias, shared_expert=cfg.shared_expert),
+    }
+
+
+def _moe(params, h, cfg):
+    return apply_moe(params["moe"], h, n_experts=cfg.n_experts,
+                     top_k=cfg.top_k, act=cfg.act,
+                     capacity_factor=cfg.moe_capacity_factor,
+                     shared_expert=cfg.shared_expert)
+
+
+def apply_attn_moe(params, x, ctx, cfg):
+    h = apply_norm(params["ln1"], x, cfg.norm)
+    h = attention(params["attn"], h, positions=ctx.get("positions"),
+                  causal=True, window=ctx.get("window", 0),
+                  use_flash=ctx.get("use_flash", False), **_attn_kwargs(cfg))
+    x = x + h
+    y, aux = _moe(params, apply_norm(params["ln2"], x, cfg.norm), cfg)
+    return x + y, aux
+
+
+state_attn_moe = state_attn_mlp
+
+
+def decode_attn_moe(params, x, state, pos, ctx, cfg):
+    """One token a row: the batch is the MoE layer's tokens, so its
+    capacity is the batch's (at B = 8 one assignment an expert for both
+    MoE configs), as in the JAX package."""
+    h = apply_norm(params["ln1"], x, cfg.norm)
+    h, state = decode_attention(params["attn"], h, state, pos,
+                                window=ctx.get("window", 0),
+                                **_decode_attn_kwargs(cfg))
+    x = x + h
+    y, _ = _moe(params, apply_norm(params["ln2"], x, cfg.norm), cfg)
+    return x + y, state
 
 
 # ----------------------------------------------------------------- mamba2
@@ -223,6 +276,8 @@ class BlockDef(NamedTuple):
 BLOCKS = {
     "attn_mlp": BlockDef(init_attn_mlp, apply_attn_mlp, state_attn_mlp,
                          decode_attn_mlp),
+    "attn_moe": BlockDef(init_attn_moe, apply_attn_moe, state_attn_moe,
+                         decode_attn_moe),
     "mamba2": BlockDef(init_mamba2_block, apply_mamba2_block,
                        state_mamba2_block, decode_mamba2_block),
     "mlstm": BlockDef(init_mlstm_block, apply_mlstm_block, state_mlstm_block,
@@ -232,7 +287,7 @@ BLOCKS = {
 }
 
 #: Block kinds of the JAX package that the port does not run yet.
-UNPORTED = ("attn_moe", "enc_attn_mlp", "xattn")
+UNPORTED = ("enc_attn_mlp", "xattn")
 
 
 def get_block(kind: str) -> BlockDef:

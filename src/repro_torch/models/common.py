@@ -17,7 +17,8 @@ from repro_torch._tree import tree_leaves
 
 
 def normal_init(key, shape, dtype, stddev):
-    return (stddev * trandom.normal(key, shape)).to(dtype)
+    # In place: a full-width draw is not held twice in f32.
+    return trandom.normal(key, shape).mul_(stddev).to(dtype)
 
 
 def lecun_init(key, shape, dtype, fan_in=None):

@@ -24,9 +24,9 @@ runs the same ops on the same inputs, so the loss and gradients are
 those of a run without remat, bit for bit.
 
 What the port does not run yet raises ``NotImplementedError`` naming
-ROADMAP Queue 1 step 8: the encoder-decoder and vision inputs,
-sinusoidal positions, M-RoPE, and the block kinds ``attn_moe``,
-``enc_attn_mlp`` and ``xattn``.
+ROADMAP Queue 1 step 8: vision tokens and M-RoPE (qwen2-vl-2b), and the
+encoder-decoder with its block kinds ``enc_attn_mlp`` and ``xattn`` and
+sinusoidal positions (whisper-tiny).
 
 Public entry points:
   init_lm / forward / per_example_loss      — training & prefill

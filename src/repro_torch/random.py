@@ -31,6 +31,10 @@ from repro_torch._device import resolve_device
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+#: Elements of a draw computed at once (:func:`_draw`): a full-width
+#: embedding is 2.1e9 elements, whose int64 temporaries would each take
+#: 16.8 GB; a slice's take 134 MB.
+DRAW_SLICE = 1 << 24
 
 
 def _rotl(x, d: int):
@@ -107,28 +111,45 @@ def fold_in(key, data) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def random_bits(key, shape=()) -> torch.Tensor:
-    """32 random bits per element of ``shape`` (partitionable mode:
-    threefry of the flat element index, words xor-ed). A batched key
-    ``(..., 2)`` gives ``(...,) + shape``."""
+def _draw(key, shape, dtype, convert) -> torch.Tensor:
+    """``convert`` of 32 random bits per element of ``shape`` (partitionable
+    mode: threefry of the flat element index, words xor-ed), into a
+    tensor of ``dtype``. A batched key ``(..., 2)`` gives ``(...,) +
+    shape``. The flat index is drawn ``DRAW_SLICE`` elements at a time,
+    so the int64 and float64 temporaries of a draw stay a slice's size
+    however large the draw; each element depends on its index alone, so
+    the slices give the bits of one draw."""
     shape = tuple(shape)
-    k1, k2 = _words(key, len(shape))
     n = math.prod(shape)
     if n >= 2 ** 32:
         raise NotImplementedError("more than 2**32 random words in one draw")
-    lo = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
-    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
-    return b1 ^ b2
+    k1, k2 = _words(key, 1)
+    lead = key.shape[:-1]
+    if n <= DRAW_SLICE:
+        lo = torch.arange(n, dtype=torch.int64, device=key.device)
+        b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+        return convert(b1 ^ b2).reshape(lead + shape)
+    out = torch.empty(lead + (n,), dtype=dtype, device=key.device)
+    for start in range(0, n, DRAW_SLICE):
+        lo = torch.arange(start, min(n, start + DRAW_SLICE), dtype=torch.int64,
+                          device=key.device)
+        b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+        out[..., start:start + lo.numel()] = convert(b1 ^ b2)
+    return out.reshape(lead + shape)
 
 
-def uniform(key, shape=(), minval=0.0, maxval=1.0) -> torch.Tensor:
-    """``jax.random.uniform`` in float32: 23 random mantissa bits under
-    the exponent of 1.0, minus 1, scaled into ``[minval, maxval)``."""
-    bits = random_bits(key, shape)
+def random_bits(key, shape=()) -> torch.Tensor:
+    """32 random bits per element of ``shape``, held in int64. A batched
+    key ``(..., 2)`` gives ``(...,) + shape``."""
+    return _draw(key, shape, torch.int64, lambda bits: bits)
+
+
+def _uniform_from_bits(bits, lo, hi):
+    """``jax.random.uniform``'s float32 from 32 random bits: 23 random
+    mantissa bits under the exponent of 1.0, minus 1, scaled into
+    ``[lo, hi)``."""
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
-    lo = _on_device(minval, torch.float32, key.device)
-    hi = _on_device(maxval, torch.float32, key.device)
     # XLA contracts the scale-and-shift into one fused multiply-add. The
     # f32 product is exact in f64, so an f64 add rounded to f32 gives the
     # fused result (barring a double-rounding tie). For the ranges the
@@ -138,13 +159,24 @@ def uniform(key, shape=(), minval=0.0, maxval=1.0) -> torch.Tensor:
     return torch.maximum(lo, scaled)
 
 
+def uniform(key, shape=(), minval=0.0, maxval=1.0) -> torch.Tensor:
+    """``jax.random.uniform`` in float32 on ``[minval, maxval)``."""
+    lo = _on_device(minval, torch.float32, key.device)
+    hi = _on_device(maxval, torch.float32, key.device)
+    return _draw(key, shape, torch.float32,
+                 lambda bits: _uniform_from_bits(bits, lo, hi))
+
+
 def normal(key, shape=()) -> torch.Tensor:
     """``jax.random.normal`` in float32: ``√2·erfinv(u)`` with ``u``
     uniform on the open interval (−1, 1). The uniform bits are JAX's;
     ``erfinv`` is torch's, so values agree to a few ulps, not bitwise."""
-    lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)).item()
-    u = uniform(key, shape, lo, 1.0)
-    return torch.erfinv(u) * math.sqrt(2.0)
+    lo = _on_device(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)).item(),
+                    torch.float32, key.device)
+    hi = _on_device(1.0, torch.float32, key.device)
+    return _draw(key, shape, torch.float32,
+                 lambda bits: torch.erfinv(_uniform_from_bits(bits, lo, hi))
+                 * math.sqrt(2.0))
 
 
 def randint(key, shape, minval, maxval) -> torch.Tensor:

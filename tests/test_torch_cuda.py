@@ -44,6 +44,14 @@ version on the same inputs: ``max|K4 − plain| ≤ 1e-4·max|plain|``, as in
 The recurrent slice on the card: reduced zamba2 (its shared attention
 also at Dh = 80) and xlstm prefills through K4 and K3, and greedy
 decode, against the same calls on the CPU to ``rtol=atol=1e-4``.
+
+The LM zoo on the card: K3 at the GQA ratios of deepseek-coder-33b
+(56/8) and llama4-scout (40/8); each of the five decoder-only configs at
+``reduced()`` width, flash prefill (K3 once a layer) and greedy decode
+against the CPU to ``rtol=atol=1e-4``, the same assignments dropped; the
+MoE layer in f32 against the CPU (the chosen experts and the drop mask
+bitwise, the output ``1e-5·max``), and two calls of the bf16 MoE layer
+giving the same bits.
 """
 
 import ctypes
@@ -71,7 +79,7 @@ from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.kernels.ssm_scan import ref as ssm_ref
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 from repro_torch.models.cnn import client_grads_fn, init_cnn
 from repro_torch.models.ssm import chunked_gla
 from repro_torch.optim import momentum, sgd
@@ -520,6 +528,12 @@ K3_CASES = [  # (B, H, Hkv, S, T, Dh), causal, window, dtype
     ((1, 8, 2, 300, 300, 80), True, 64, torch.bfloat16),
     ((2, 4, 2, 100, 40, 80), False, 16, torch.bfloat16),
     ((1, 4, 4, 130, 130, 80), True, 0, torch.float32),
+    # The GQA ratios of deepseek-coder-33b (56/8), llama4-scout (40/8),
+    # command-r-35b (64/8) and phi3.5-moe (32/8), heads of 128.
+    ((1, 56, 8, 300, 300, 128), True, 0, torch.bfloat16),
+    ((2, 40, 8, 256, 256, 128), True, 0, torch.bfloat16),
+    ((1, 64, 8, 300, 300, 128), True, 0, torch.bfloat16),
+    ((2, 32, 8, 256, 256, 128), True, 0, torch.bfloat16),
 ]
 
 
@@ -610,6 +624,100 @@ def test_lm_slice_on_card_matches_cpu(card):
     for (tc, lc), (tg, lg) in zip(out["cpu"][2], out["cuda"][2]):
         assert torch.equal(tg, tc)
         torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+
+
+ZOO = ("minitron-4b", "deepseek-coder-33b", "command-r-35b",
+       "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e")
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_zoo_slice_on_card_matches_cpu(card, name):
+    """Each decoder-only config of the zoo at ``reduced()`` width with
+    two layers and 2 kv heads for its 4 query heads, f32: the flash
+    prefill on the card (K3 once a layer) and 8 greedy decode steps agree with the same calls on the
+    CPU, ``rtol=atol=1e-4``; the MoE layers route alike."""
+    cfg = get_config(name).reduced().replace(
+        n_kv_heads=2, superblock=((get_config(name).resolved_superblock[0][0],
+                                   2, False),), use_flash=True)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (2, 40))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = transformer.init_lm(trandom.PRNGKey(0, device=dev), cfg)
+        tokens = torch.from_numpy(toks).to(dev)
+        before = fa_ops.launch_counts["flash_attention"]
+        moe.reset_dispatch_counts()
+        logits = make_prefill_step(cfg)(params, {"tokens": tokens})
+        launched = fa_ops.launch_counts["flash_attention"] - before
+        dropped = int(moe.dispatch_counts["dropped"])
+        serve = make_serve_step(cfg)
+        states = transformer.init_decode_state(cfg, 2, 8, device=dev)
+        tok, steps = tokens[:, :1], []
+        for pos in range(8):
+            nxt, step_logits, states = serve(params, tok, states, pos)
+            tok = nxt[:, None]
+            steps.append((nxt.cpu(), step_logits.cpu()))
+        out[dev] = (logits.cpu(), launched, dropped, steps)
+    assert out["cpu"][1] == 0 and out["cuda"][1] == 2
+    assert out["cuda"][2] == out["cpu"][2]
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-4)
+    for (tc, lc), (tg, lg) in zip(out["cpu"][3], out["cuda"][3]):
+        assert torch.equal(tg, tc)
+        torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+
+
+def _moe_layer(dtype, shared):
+    """A reduced MoE layer (d 256, d_ff 512, 4 experts) drawn on the CPU,
+    and 8 x 64 tokens."""
+    params = moe.init_moe(trandom.PRNGKey(7, device="cpu"), 256, 512, 4,
+                          dtype, shared_expert=shared)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (8, 64, 256)).astype(np.float32)).to(dtype)
+    x[0, :3] = 0.0  # ties: every expert's logit equal
+    return params, x
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("top_k,shared,cf", [(2, False, 1.25), (1, True, 0.5)],
+                         ids=["phi3.5-like", "llama4-like-dropping"])
+def test_moe_layer_on_card_matches_cpu(card, top_k, shared, cf):
+    """The MoE layer in f32 on the card against the CPU: the chosen
+    experts and the drop mask bitwise, the output ``1e-5·max``, the aux
+    loss ``1e-5``."""
+    params, x = _moe_layer(torch.float32, shared)
+    kw = dict(n_experts=4, top_k=top_k, capacity_factor=cf,
+              shared_expert=shared)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        p, xd = _to(params, dev), x.to(dev)
+        _, _, top_e, pos, cap = moe.route(p["router"], xd.reshape(-1, 256),
+                                          n_experts=4, top_k=top_k,
+                                          capacity_factor=cf)
+        y, aux = moe.apply_moe(p, xd, **kw)
+        got[dev] = (top_e.cpu(), (pos < cap).cpu(), y.cpu(), aux.cpu())
+    assert torch.equal(got["cuda"][0], got["cpu"][0])
+    assert torch.equal(got["cuda"][1], got["cpu"][1])
+    assert (~got["cpu"][1]).any() == (cf < 1)
+    ymax = got["cpu"][2].abs().max().item()
+    torch.testing.assert_close(got["cuda"][2], got["cpu"][2], rtol=0,
+                               atol=1e-5 * ymax)
+    torch.testing.assert_close(got["cuda"][3], got["cpu"][3], rtol=1e-5,
+                               atol=0)
+
+
+def test_bf16_moe_layer_on_card_is_deterministic(card):
+    """Two calls of the bf16 MoE layer on the same inputs give the same
+    bits: every slot of the expert buffer written once, the k terms
+    summed in order, no atomics."""
+    params, x = _moe_layer(torch.bfloat16, True)
+    p, xd = _to(params, card), x.to(card)
+    kw = dict(n_experts=4, top_k=2, capacity_factor=0.75, shared_expert=True)
+    (y1, a1), (y2, a2) = (moe.apply_moe(p, xd, **kw) for _ in range(2))
+    assert y1.dtype == torch.bfloat16
+    assert torch.equal(y1, y2) and torch.equal(a1, a2)
 
 
 @pytest.mark.parametrize("name,kw", [

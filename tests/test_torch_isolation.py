@@ -56,7 +56,12 @@ def test_port_modules_include_the_experiments_engine():
                  "repro_torch.launch.serve", "repro_torch.launch.train",
                  "repro_torch.launch.steps", "repro_torch.data.loader",
                  "repro_torch.data.partition", "repro_torch.core.trainer",
-                 "repro_torch.models.transformer"):
+                 "repro_torch.models.transformer",
+                 "repro_torch.models.moe", "repro_torch.configs.minitron_4b",
+                 "repro_torch.configs.deepseek_coder_33b",
+                 "repro_torch.configs.command_r_35b",
+                 "repro_torch.configs.phi35_moe_42b",
+                 "repro_torch.configs.llama4_scout_17b"):
         assert name in modules
     scripts = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"examples_torch/quickstart.py", "examples_torch/paper_cifar.py",

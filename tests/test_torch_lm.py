@@ -272,8 +272,7 @@ def test_bf16_tree_runs_through_the_port():
 def test_unported_options_raise():
     _, tcfg = _cfgs()
     key = trandom.PRNGKey(0, device="cpu")
-    for bad in (tcfg.replace(superblock=(("attn_moe", 2, False),)),
-                tcfg.replace(superblock=(("xattn", 2, False),)),
+    for bad in (tcfg.replace(superblock=(("xattn", 2, False),)),
                 tcfg.replace(m_rope=True),
                 tcfg.replace(pos_embed="sinusoidal"),
                 tcfg.replace(enc_dec=True)):

@@ -6,7 +6,9 @@ splits, fold-ins, uniform floats and random integers must be the same
 bits, which is what lets scheduler decisions and minibatches of the two
 packages be compared bitwise. ``normal`` shares the uniform bits but
 uses torch's ``erfinv``, which differs from XLA's by up to a few tens
-of ulps in the tails, so it is held to f32 ``rtol=1e-5``.
+of ulps in the tails, so it is held to f32 ``rtol=1e-5``. A draw is
+computed over slices of its flat index (``DRAW_SLICE`` elements at a
+time); the slices give the bits of one draw.
 """
 
 import jax
@@ -92,6 +94,35 @@ def test_client_draws_bitwise_per_row(seed):
             np.asarray(jenergy.client_randint(jk, n, jnp.asarray(maxval))))
     wide = _np(tenergy.client_uniform(tk, 13))
     assert wide[:8].tobytes() == _np(tenergy.client_uniform(tk, 8)).tobytes()
+
+
+@pytest.mark.parametrize("slice_", [7, 1000, 4096])
+def test_draws_in_slices_are_one_draw(monkeypatch, slice_):
+    """``random_bits``, ``uniform`` and ``normal`` drawn in slices (a
+    shape of 37,037 elements, a multiple of none of the slices) give the
+    unsliced draw's bits, JAX's for the bits and uniform; a batched key
+    likewise."""
+    jk = jax.random.split(jax.random.PRNGKey(5), 3)[1]
+    tk = trandom.split(trandom.PRNGKey(5, device="cpu"), 3)[1]
+    batched = trandom.split(trandom.PRNGKey(6, device="cpu"), 3)
+    shape = (37, 1001)
+    draws = (("random_bits", ()), ("uniform", (-2.0, 3.0)), ("normal", ()))
+    whole = {(name, k.dim()): _np(getattr(trandom, name)(k, shape, *args))
+             for k in (tk, batched) for name, args in draws}
+    assert trandom.DRAW_SLICE > 37 * 1001
+    monkeypatch.setattr(trandom, "DRAW_SLICE", slice_)
+    for k in (tk, batched):
+        for name, args in draws:
+            got = _np(getattr(trandom, name)(k, shape, *args))
+            assert got.shape == k.shape[:-1] + shape
+            assert got.tobytes() == whole[name, k.dim()].tobytes(), name
+    assert _np(trandom.random_bits(tk, shape)).astype(np.uint32).tobytes() == \
+        np.asarray(jax.random.bits(jk, shape)).tobytes()
+    assert _np(trandom.uniform(tk, shape, -2.0, 3.0)).tobytes() == np.asarray(
+        jax.random.uniform(jk, shape, minval=-2.0, maxval=3.0)).tobytes()
+    np.testing.assert_allclose(_np(trandom.normal(tk, shape)),
+                               np.asarray(jax.random.normal(jk, shape)),
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_randint_bounds_checked():
