@@ -110,10 +110,12 @@ without printing its result line:
    exact zeros), zamba2-2.7b's shared attention at the same B and S
    (H = Hkv = 32, Dh = 80, causal, in the Dh = 128 tile), Dh = 80 with
    GQA 32/8 and a 256 window at a ragged S = T = 1,000, and Dh = 80 in
-   f32, and the GQA shapes of deepseek-coder-33b (H = 56, Hkv = 8) and
-   llama4-scout (H = 40, Hkv = 8), Dh = 128, at the same B and S. Times
-   K3 at the prefill, minitron-4b, zamba2-2.7b, deepseek-coder-33b and
-   llama4-scout shapes, flushed and warm,
+   f32, the GQA shapes of deepseek-coder-33b (H = 56, Hkv = 8),
+   llama4-scout (H = 40, Hkv = 8), command-r-35b (H = 64, Hkv = 8),
+   phi3.5-moe (H = 32, Hkv = 8) and qwen2-vl-2b (H = 12, Hkv = 2),
+   Dh = 128, at the same B and S, and whisper-tiny's decoder
+   self-attention (B = 8, H = Hkv = 6, S = T = 448, Dh = 64). Times K3
+   at each model's shape, flushed and warm,
    beside the plain version, ``F.scaled_dot_product_attention`` and the
    bound, with the achieved TFLOP/s, the share of the bound, and the
    time the exponentials take at the MUFU rate (one ex2 per visible
@@ -218,12 +220,34 @@ without printing its result line:
    dispatch, expert products and combine (its ``torch.profiler``
    ranges), and the rest, as shares of the device time. Each line
    carries the card's name and power limit.
-14. Prints the ``kernels`` JSON line (K1 and K2 also carry the engine,
+14. Multimodal phase: qwen2-vl-2b (28 layers, 12 heads over 2 kv heads
+   of 128, M-RoPE, 256 vision tokens) and whisper-tiny (4 encoder and 4
+   decoder layers, 6 heads of 64, sinusoidal positions) at full width
+   and depth, random bf16 weights from a seed, in turn: init; one
+   prefill through ``make_prefill_step`` with ``use_flash=True`` (qwen2-vl:
+   B = 8 x S = 2,048, the first 256 positions replaced by synthetic
+   vision embeddings (8, 256, 1,536) at the embedding's scale; whisper:
+   B = 8 x S = 448 with synthetic frame embeddings (8, 1,500, 384),
+   encoded in the prefill), the K3 count set to 0 before it and 28 or 4
+   after (whisper's encoder and cross attention take the plain
+   attention, as in the JAX package), then 4 timed (median and spread);
+   the plain bf16, f32 reference and f32 K3-route prefills and the
+   recurrent phase's rule on every row; qwen2-vl's prefill again with
+   three distinct position rows (the vision tokens on a 16 x 16 grid,
+   the text after it), which must move the f32 reference by more than
+   the floor, held by the same rule, 28 K3 launches; whisper's encoder
+   alone; decode replay of a 128-token prompt (qwen2-vl: text; whisper:
+   through the encoder's memory) into a 256- or 448-slot cache, held
+   against the f32 reference prefill of the prompt, then 32 greedy
+   steps; one prefill under ``torch.profiler`` (K3's share of the device
+   time); the peak device memory. Each line carries the card's name and
+   power limit.
+15. Prints the ``kernels`` JSON line (K1 and K2 also carry the engine,
    faults and serve phases' counts, ``engine_launches``,
    ``faults_launches`` and ``serve_launches``; K2 the train phase's,
    ``train_launches``, and its time at that shape, ``train_shape``; K3
-   and K4 the recurrent phase's, ``recurrent_launches``; K3 the zoo
-   phase's, ``zoo_launches``; K4's
+   and K4 the recurrent phase's, ``recurrent_launches``; K3 the zoo and
+   multimodal phases', ``zoo_launches`` and ``mm_launches``; K4's
    ``launches`` are the recurrent prefills', its K4 phase's count
    ``phase_launches``), then the result line.
 
@@ -1275,9 +1299,17 @@ K3_CASES = (  # label, (B, H, Hkv, S, T, Dh), causal, window, dtype name
      "bfloat16"),
     ("phi3.5-moe-42b", (LM_BATCH, 32, 8, LM_SEQ, LM_SEQ, 128), True, 0,
      "bfloat16"),
+    # The multimodal phase's prefills: qwen2_vl_2b.py (12 heads over 2 kv
+    # heads of 128, GQA ratio 6) and whisper_tiny.py's decoder
+    # self-attention (6 heads of 64, MHA) over its 448-token text
+    # context, no multiple of the 128-row tile.
+    ("qwen2-vl-2b", (LM_BATCH, 12, 2, LM_SEQ, LM_SEQ, 128), True, 0,
+     "bfloat16"),
+    ("whisper-tiny", (LM_BATCH, 6, 6, 448, 448, 64), True, 0, "bfloat16"),
 )
 K3_TIMED = ("prefill shape", "minitron-4b", "zamba2-2.7b", "deepseek-coder-33b",
-            "llama4-scout-17b", "command-r-35b", "phi3.5-moe-42b")
+            "llama4-scout-17b", "command-r-35b", "phi3.5-moe-42b",
+            "qwen2-vl-2b", "whisper-tiny")
 # MUFU ex2 results a clock per SM on compute capability 9.0 (CUDA C++
 # programming guide, arithmetic instruction throughput).
 MUFU_PER_CLOCK = 16
@@ -2680,6 +2712,246 @@ def zoo_phase(torch, rt, fa_ops, card):
     return counts
 
 
+# Multimodal phase: qwen2-vl-2b (M-RoPE, vision tokens) and whisper-tiny
+# (the encoder-decoder) at full width and depth: name, K3 launches a
+# prefill (one a causal self-attention layer; whisper's encoder and
+# cross attention take the plain attention, as in the JAX package),
+# parameters, the prefill's length and the decode cache's slots.
+# whisper's text context is 448 tokens and its encoder 1,500 frames
+# [arXiv:2212.04356]; qwen2-vl's vision tokens are 256 (its config).
+MM_MODELS = (
+    ("qwen2-vl-2b", 28, 1_777_675_776, LM_SEQ, REC_CACHE),
+    ("whisper-tiny", 4, 56_398_080, 448, 448),
+)
+MM_TIMED = 4
+
+
+def mm_positions(torch, nv, s):
+    """Qwen2-VL's three position rows (temporal, height, width) for a
+    sequence whose first ``nv`` tokens are a square grid of patches at
+    time 0, the text after it at ``side + i`` in all three rows:
+    (3, LM_BATCH, s)."""
+    side = math.isqrt(nv)
+    check(side * side == nv, f"{nv} vision tokens are no square grid")
+    grid = torch.arange(nv, device=DEVICE)
+    text = side + torch.arange(s - nv, device=DEVICE)
+    rows = torch.stack([torch.cat([r, text]) for r in (
+        torch.zeros_like(grid), grid // side, grid % side)])
+    return rows[:, None].expand(3, LM_BATCH, s)
+
+
+def mm_model(torch, rt, fa_ops, card, name, n_k3, n_params, seq, cache):
+    """One multimodal config at full width and depth: the K3 prefill (with
+    vision embeddings or frames) counted and timed, the plain bf16, f32
+    reference and f32 K3-route prefills held by the rule on every row;
+    qwen2-vl again with three distinct position rows; whisper's encoder
+    alone; decode replay and greedy decode (whisper through the encoder's
+    memory); one prefill profiled. Returns the counted K3 launches."""
+    import numpy as np
+
+    from repro_torch._tree import tree_map
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer
+
+    cfg = rt.configs.get_config(name).replace(use_flash=True)
+    plain_cfg = cfg.replace(use_flash=False)
+    ref_cfg = plain_cfg.replace(dtype_name="float32")
+    t0_model = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms = timed(torch, lambda: transformer.init_lm(
+        rt.random.PRNGKey(0, device=DEVICE), cfg))
+    count = rt.models.count_params(params)
+    check(count == n_params, f"{name} has {count} parameters, not {n_params}")
+    layers = (f"{cfg.n_enc_layers} encoder + {cfg.n_layers} decoder layers"
+              if cfg.enc_dec else f"{cfg.n_layers} layers")
+    print(f"mm init: {name} at full width and depth ({layers}, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} kv heads "
+          f"of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), "
+          f"{count:,} parameters ({2 * count / 1e9:.2f} GB bf16) in "
+          f"{init_ms / 1e3:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+
+    data = rt.data.make_lm_tokens(0, LM_BATCH, seq, cfg.vocab).tokens
+    tokens = torch.from_numpy(data[:, :seq]).to(DEVICE)
+    prompt = tokens[:, :REC_PROMPT]
+    rng = np.random.default_rng(1)
+    if cfg.enc_dec:
+        # Frame embeddings of the stub frontend, unit scale.
+        extra = {"audio_feats": torch.from_numpy(rng.standard_normal(
+            (LM_BATCH, cfg.enc_len, cfg.d_model)).astype(np.float32)).to(DEVICE)}
+        what = f"{cfg.enc_len} frames"
+    else:
+        # Patch embeddings at the token embedding's scale, d_model**-0.5.
+        extra = {"vision_embeds": torch.from_numpy((rng.standard_normal(
+            (LM_BATCH, cfg.n_vision_tokens, cfg.d_model))
+            * cfg.d_model ** -0.5).astype(np.float32)).to(DEVICE)}
+        what = f"{cfg.n_vision_tokens} vision tokens"
+    batch = {"tokens": tokens, **extra}
+    # The decode prompt: text alone for qwen2-vl (the JAX package's decode
+    # step takes no vision tokens), with the frames for whisper.
+    prompt_batch = {"tokens": prompt, **(extra if cfg.enc_dec else {})}
+    prefill = make_prefill_step(cfg)
+    plain = make_prefill_step(plain_cfg)
+    reference = make_prefill_step(ref_cfg)
+    kernel32 = make_prefill_step(cfg.replace(dtype_name="float32"))
+
+    with torch.no_grad():
+        # The main path: one K3 prefill, counted from 0.
+        fa_ops.reset_launch_counts()
+        flash, first_ms = timed(torch, lambda: prefill(params, batch))
+        launches = fa_ops.launch_counts["flash_attention"]
+        check(launches == n_k3, f"{name} prefill: {launches} K3 launches, "
+              f"expected {n_k3}")
+        check(flash.shape == (LM_BATCH, cfg.vocab)
+              and bool(torch.isfinite(flash).all()),
+              f"{name} K3 prefill logits not finite or of the wrong shape")
+        ms = sorted(timed(torch, lambda: prefill(params, batch))[1]
+                    for _ in range(MM_TIMED))
+        print(f"mm prefill {name} (use_flash: K3) with {what}: B={LM_BATCH} "
+              f"S={seq}: first (counted: {launches} K3 launches) "
+              f"{first_ms:.2f} ms, then {MM_TIMED} timed: median "
+              f"{(ms[1] + ms[2]) / 2:.2f} ms (spread {ms[0]:.2f}-{ms[-1]:.2f}),"
+              f" {LM_BATCH * seq / ms[0] * 1e3:,.0f} tokens/s (best) [{card}]")
+        plain_logits, plain_ms = timed(torch, lambda: plain(params, batch))
+        plain_prompt = plain(params, prompt_batch)
+        params32 = tree_map(lambda x: x.float(), params)
+        ref_logits, ref_ms = timed(torch, lambda: reference(params32, batch))
+        ref_prompt = reference(params32, prompt_batch)
+        k32_logits = kernel32(params32, batch)
+        if cfg.m_rope:
+            # The same prefill with three distinct position rows: the
+            # vision tokens on a 16 x 16 grid, the text after it.
+            pos3 = mm_positions(torch, cfg.n_vision_tokens, seq)
+
+            def last(c, p):
+                x, _ = transformer.hidden_states(
+                    p, c, tokens, positions=pos3, **extra)
+                return transformer._head(p, c, x[:, -1:])[:, 0]
+
+            fa_ops.reset_launch_counts()
+            flash3, ms3 = timed(torch, lambda: last(cfg, params))
+            launches3 = fa_ops.launch_counts["flash_attention"]
+            check(launches3 == n_k3, f"{name} prefill with 3-row positions: "
+                  f"{launches3} K3 launches, expected {n_k3}")
+            plain3 = last(plain_cfg, params)
+            ref3 = last(ref_cfg, params32)
+        if cfg.enc_dec:
+            memory, enc_ms = timed(torch, lambda: transformer.encode(
+                params, cfg, extra["audio_feats"]))
+        del params32
+    torch.cuda.empty_cache()
+    zeros = torch.zeros(LM_BATCH, dtype=torch.bool, device=DEVICE)
+    top = ref_logits.abs().max().item()
+    print(f"mm reference {name}: plain bf16 prefill {plain_ms:.2f} ms, f32 "
+          f"reference {ref_ms:.2f} ms; last-position logits (max |logit| "
+          f"{top:.3g}) from the f32 reference [{card}]")
+    _, floor = hold_unflipped(f"mm reference {name}", row_dists(flash, ref_logits),
+                              zeros, row_dists(plain_logits, ref_logits), zeros,
+                              LM_BATCH, card)
+    agree, rows = argmax_agrees(flash, ref_logits, floor)
+    print(f"mm reference {name}: argmax agrees {agree} on the {rows} rows "
+          f"whose top-two gap exceeds 2x the floor [{card}]")
+    check(agree, f"{name} K3 prefill argmax differs from the f32 reference "
+          f"on a row whose top-two gap exceeds 2x the floor")
+    err32 = dist(k32_logits, ref_logits)
+    agree, rows = argmax_agrees(k32_logits, ref_logits, err32)
+    print(f"mm f32 kernels {name}: the K3 route in f32 with the f32 weights "
+          f"{err32:.4g} from the f32 reference ({err32 / top:.3g} of "
+          f"max|logit|, bound {REC_F32_TOL}); argmax agrees {agree} on the "
+          f"{rows} of {LM_BATCH} rows whose top-two gap exceeds 2x that "
+          f"[{card}]")
+    check(err32 <= REC_F32_TOL * top and agree,
+          f"{name} f32 K3 prefill {err32:.4g} from the f32 reference "
+          f"(bound {REC_F32_TOL} x {top:.4g}), argmax agrees {agree}")
+    if cfg.m_rope:
+        moved = dist(ref3, ref_logits)
+        side = math.isqrt(cfg.n_vision_tokens)
+        print(f"mm m-rope {name}: a K3 prefill with 3 distinct position rows "
+              f"(a {side} x {side} grid, text from {side}) in {ms3:.2f} ms, "
+              f"{launches3} K3 "
+              f"launches; its f32 reference {moved:.4g} from the default "
+              f"positions' (> the floor {floor:.4g}) [{card}]")
+        check(moved > floor, f"{name}: 3 distinct position rows moved the f32 "
+              f"reference by {moved:.4g}, not above the floor {floor:.4g}")
+        _, floor3 = hold_unflipped(f"mm m-rope {name}", row_dists(flash3, ref3),
+                                   zeros, row_dists(plain3, ref3), zeros,
+                                   LM_BATCH, card)
+        agree, rows = argmax_agrees(flash3, ref3, floor3)
+        check(agree, f"{name} K3 prefill with 3-row positions: argmax differs "
+              f"from the f32 reference above 2x the floor")
+        del flash3, plain3, ref3
+    if cfg.enc_dec:
+        print(f"mm encode {name}: {cfg.n_enc_layers} bidirectional layers "
+              f"over B={LM_BATCH} x {cfg.enc_len} frames in {enc_ms:.2f} ms "
+              f"(plain attention, as in the JAX package) [{card}]")
+
+    serve = make_serve_step(cfg)
+    mem = (memory,) if cfg.enc_dec else ()
+    states = transformer.init_decode_state(
+        cfg, LM_BATCH, transformer.decode_cache_len(cfg, cache), device=DEVICE)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(REC_PROMPT):
+            nxt, logits, states = serve(params, prompt[:, pos:pos + 1], states,
+                                        pos, *mem)
+        torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t0) / REC_PROMPT * 1e3
+    _, floor_p = hold_unflipped(
+        f"mm decode replay {name}", row_dists(logits, ref_prompt), zeros,
+        row_dists(plain_prompt, ref_prompt), zeros, LM_BATCH, card)
+    agree, rows = argmax_agrees(logits, ref_prompt, floor_p)
+    print(f"mm decode replay {name}: {REC_PROMPT} prompt tokens one at a time "
+          f"through make_serve_step (cache {cache}"
+          f"{', the memory of the frames' if mem else ', text'}), "
+          f"{replay_ms:.2f} ms/step; logits at position {REC_PROMPT - 1} held "
+          f"against the f32 reference prefill of the prompt; argmax agrees "
+          f"{agree} on the {rows} rows above 2x the floor [{card}]")
+    check(agree, f"{name} decode argmax differs from the f32 reference on a "
+          f"row whose top-two gap exceeds 2x the floor")
+
+    tok, first = nxt[:, None], []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(REC_PROMPT, REC_PROMPT + REC_GREEDY):
+            nxt, logits, states = serve(params, tok, states, pos, *mem)
+            tok = nxt[:, None]
+            first.append(nxt)
+        torch.cuda.synchronize()
+        greedy_ms = (time.perf_counter() - t0) / REC_GREEDY * 1e3
+    check(bool(torch.isfinite(logits).all()), f"{name} decode logits not finite")
+    print(f"mm decode {name}: {REC_GREEDY} greedy steps at positions "
+          f"{REC_PROMPT}..{REC_PROMPT + REC_GREEDY - 1}, {greedy_ms:.2f} ms/step "
+          f"({LM_BATCH * 1e3 / greedy_ms:.0f} tokens/s); tokens of row 0: "
+          f"{[int(t[0]) for t in first[:8]]} [{card}]")
+
+    with torch.no_grad():
+        rows_p, busy_us = profile(torch, f"mm prefill {name}", "prefill",
+                                  lambda: prefill(params, batch), 1, cpu=False)
+    k3_share = 100 * sum(us for n, us, _ in rows_p
+                         if "flash_attention" in n) / busy_us
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"mm phase {name}: K3 {k3_share:.1f} % of the prefill's device "
+          f"time; peak device memory {peak:.2f} GB; "
+          f"{time.perf_counter() - t0_model:.1f} s [{card}]")
+    del params, states
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mm_phase(torch, rt, fa_ops, card):
+    """qwen2-vl-2b and whisper-tiny served at full width and depth (random
+    bf16 weights from seed 0): K3 once a causal self-attention layer a
+    prefill."""
+    phase_t0 = time.perf_counter()
+    counts = {name: mm_model(torch, rt, fa_ops, card, name, *rest)
+              for name, *rest in MM_MODELS}
+    print(f"mm phase: took {time.perf_counter() - phase_t0:.1f} s [{card}]")
+    return counts
+
+
 def load_port():
     """Import the port from ``./src``."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -2766,6 +3038,7 @@ def main():
     del lm_params
     rec_counts = recurrent_phase(torch, rt, fa_ops, ssm_ops, card)
     zoo_counts = zoo_phase(torch, rt, fa_ops, card)
+    mm_counts = mm_phase(torch, rt, fa_ops, card)
 
     names = {"k1": ("masked_scaled_aggregate", SOURCE,
                     "src/repro/kernels/aggregate/aggregate.py:77"),
@@ -2808,6 +3081,8 @@ def main():
                 name: c["flash_attention"] for name, c in rec_counts.items()}
             # The zoo phase's prefills, each counted from 0.
             kernels[-1]["zoo_launches"] = zoo_counts
+            # The multimodal phase's prefills, each counted from 0.
+            kernels[-1]["mm_launches"] = mm_counts
     # K4's main path is the two recurrent models' prefills: its launches
     # are theirs, counted from 0 before each. Its times and bound are the
     # K4 phase's, one scan at each layer's shape (the sums over both; each

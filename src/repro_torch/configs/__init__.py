@@ -1,12 +1,10 @@
-"""Config registry of the port: the architectures whose block kinds are
-ported. The dense decoders stablelm-1.6b, minitron-4b,
-deepseek-coder-33b and command-r-35b (``attn_mlp``), the MoE decoders
-phi3.5-moe-42b-a6.6b and llama4-scout-17b-a16e (``attn_moe``),
-zamba2-2.7b (``mamba2`` with a shared ``attn_mlp``) and xlstm-1.3b
-(``mlstm`` and ``slstm``). The JAX package's other two, qwen2-vl-2b
-(M-RoPE, vision tokens) and whisper-tiny (the encoder-decoder,
-``xattn``, sinusoidal positions), come with those parts (ROADMAP Queue 1
-step 8).
+"""Config registry of the port: the JAX package's ten architectures.
+The dense decoders stablelm-1.6b, minitron-4b, deepseek-coder-33b and
+command-r-35b (``attn_mlp``), the MoE decoders phi3.5-moe-42b-a6.6b and
+llama4-scout-17b-a16e (``attn_moe``), zamba2-2.7b (``mamba2`` with a
+shared ``attn_mlp``), xlstm-1.3b (``mlstm`` and ``slstm``), qwen2-vl-2b
+(``attn_mlp`` with M-RoPE and vision tokens) and whisper-tiny (the
+encoder-decoder: ``enc_attn_mlp`` and ``xattn``, sinusoidal positions).
 """
 
 from repro_torch.configs import (
@@ -15,7 +13,9 @@ from repro_torch.configs import (
     llama4_scout_17b,
     minitron_4b,
     phi35_moe_42b,
+    qwen2_vl_2b,
     stablelm_1p6b,
+    whisper_tiny,
     xlstm_1p3b,
     zamba2_2p7b,
 )
@@ -24,7 +24,7 @@ from repro_torch.configs.base import ArchConfig
 REGISTRY = {c.CONFIG.name: c.CONFIG
             for c in (phi35_moe_42b, llama4_scout_17b, minitron_4b,
                       deepseek_coder_33b, command_r_35b, zamba2_2p7b,
-                      xlstm_1p3b, stablelm_1p6b)}
+                      xlstm_1p3b, stablelm_1p6b, qwen2_vl_2b, whisper_tiny)}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -5,10 +5,10 @@ package). The fields, ``replace``, ``reduced`` and the derived
 properties are the JAX package's; only ``dtype`` differs: it is a torch
 dtype. A config fully determines parameter shapes and init, the block
 stack (``superblock`` × ``n_super``), the attention flavour and the
-decode-cache layout. The port runs the ``attn_mlp``, ``attn_moe``,
-``mamba2``, ``mlstm`` and ``slstm`` block kinds (see
-:mod:`repro_torch.models.blocks`); the other fields are carried so that
-a config reads the same in both packages.
+decode-cache layout. The port runs every block kind of the JAX package
+(see :mod:`repro_torch.models.blocks`); fields it does not read (the
+dry-run's ``unroll_layers``, ``long_context_window``) are carried so
+that a config reads the same in both packages.
 """
 
 from __future__ import annotations

@@ -14,7 +14,6 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.trainer import build_energy_train_step
 from repro_torch.models import transformer
-from repro_torch.models.blocks import NOT_PORTED
 from repro_torch.optim import adamw, sgd
 
 
@@ -45,12 +44,11 @@ def make_prefill_step(cfg: ArchConfig, *, window=None):
     """
 
     def prefill(params, batch):
-        extra = sorted(set(batch) & {"vision_embeds", "audio_feats"})
-        if extra:
-            raise NotImplementedError(
-                f"{', '.join(extra)} not ported yet ({NOT_PORTED})")
-        x, _ = transformer.hidden_states(params, cfg, batch["tokens"],
-                                         window=window)
+        x, _ = transformer.hidden_states(
+            params, cfg, batch["tokens"],
+            vision_embeds=batch.get("vision_embeds"),
+            audio_feats=batch.get("audio_feats"),
+            window=window)
         logits = transformer._head(params, cfg, x[:, -1:])
         return logits[:, 0]
 
@@ -58,11 +56,13 @@ def make_prefill_step(cfg: ArchConfig, *, window=None):
 
 
 def make_serve_step(cfg: ArchConfig, *, window=None):
-    """serve(params, tokens (B,1), states, pos) ->
+    """serve(params, tokens (B,1), states, pos[, memory]) ->
     (next_token (B,) int32, logits (B,vocab), states).
 
     ``pos`` is a Python int; the states are updated in place
-    (:func:`repro_torch.models.attention.decode_attention`)."""
+    (:func:`repro_torch.models.attention.decode_attention`); ``memory``
+    is an encoder-decoder config's encoder output
+    (:func:`repro_torch.models.transformer.encode`)."""
 
     def serve(params, tokens, states, pos, memory=None):
         logits, new_states = transformer.decode_step(

@@ -1,15 +1,15 @@
 """GQA attention: the prefill path and the decode path with a KV cache.
 
-Port of ``repro.models.attention`` for the blocks the port runs:
-grouped-query attention with RoPE, causal or bidirectional, an optional
-sliding window, the flash-attention kernel K3 on the prefill path
-(``use_flash``), and one-token decode through a full cache or a ring
-buffer. Training differentiates the plain path (:func:`_sdpa`); K3 has
-no backward, in the JAX package as here, so a flash prefill that needs
-gradients raises. M-RoPE (qwen2-vl) and cross-attention (whisper) wait
-for their block kinds (ROADMAP Queue 1 step 8): the functions here take
-neither, and :func:`repro_torch.models.transformer.check_ported`
-refuses configs that need them.
+Port of ``repro.models.attention``: grouped-query attention with RoPE or
+M-RoPE (qwen2-vl), causal or bidirectional (the whisper encoder), cross
+attention over an encoder memory (the whisper decoder, ``kv_override``),
+an optional sliding window, the flash-attention kernel K3 on the prefill
+path (``use_flash``), and one-token decode through a full cache or a
+ring buffer. As in the JAX package, only causal self-attention goes
+through K3; bidirectional and cross attention take :func:`_sdpa`.
+Training differentiates the plain path (:func:`_sdpa`); K3 has no
+backward, in the JAX package as here, so a flash prefill that needs
+gradients raises.
 
 Tensor convention as in the JAX package: x (B, S, D); q (B, S, H, Dh);
 kv (B, S, Hkv, Dh).
@@ -21,7 +21,7 @@ import torch
 
 from repro_torch import random as trandom
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.models.common import apply_rope, dense, dense_init
+from repro_torch.models.common import apply_mrope, apply_rope, dense, dense_init
 
 NEG_INF = -1e30
 
@@ -41,9 +41,12 @@ def _split_heads(x, n, dh):
     return x.reshape(x.shape[:-1] + (n, dh))
 
 
-def _rope(q, k, positions, theta):
+def _rope(q, k, positions, theta, m_rope, mrope_sections):
     if positions is None:
         return q, k
+    if m_rope:
+        return (apply_mrope(q, positions, theta, mrope_sections),
+                apply_mrope(k, positions, theta, mrope_sections))
     return apply_rope(q, positions, theta), apply_rope(k, positions, theta)
 
 
@@ -133,18 +136,26 @@ def causal_mask(s, t_len=None, window=0, offset=0, device=None):
 
 
 def attention(params, x, *, n_heads, n_kv_heads, head_dim,
-              positions=None, rope_theta=1e4, causal=True, window=0,
-              use_flash=False):
-    """Full-sequence self-attention (prefill). With ``use_flash`` and
-    ``causal`` it runs the flash-attention kernel K3, exactly where the
-    JAX package calls its Pallas kernel; otherwise :func:`_sdpa`."""
+              positions=None, rope_theta=1e4, m_rope=False,
+              mrope_sections=(16, 24, 24), causal=True, window=0,
+              kv_override=None, use_flash=False):
+    """Full-sequence attention (prefill, the encoder, cross attention).
+    With ``use_flash``, ``causal`` and no ``kv_override`` it runs the
+    flash-attention kernel K3, exactly where the JAX package calls its
+    Pallas kernel; otherwise :func:`_sdpa`.
+
+    kv_override: (B, T, D) memory for cross attention (the whisper
+    decoder); when set, keys and values come from it, without rotary and
+    unmasked (``causal`` is ignored)."""
     b, s, _ = x.shape
     q = _split_heads(dense(params["wq"], x), n_heads, head_dim)
-    k = _split_heads(dense(params["wk"], x), n_kv_heads, head_dim)
-    v = _split_heads(dense(params["wv"], x), n_kv_heads, head_dim)
-    q, k = _rope(q, k, positions, rope_theta)
+    kv_in = x if kv_override is None else kv_override
+    k = _split_heads(dense(params["wk"], kv_in), n_kv_heads, head_dim)
+    v = _split_heads(dense(params["wv"], kv_in), n_kv_heads, head_dim)
+    if kv_override is None:
+        q, k = _rope(q, k, positions, rope_theta, m_rope, mrope_sections)
 
-    if use_flash and causal:
+    if use_flash and kv_override is None and causal:
         if any(t.requires_grad for t in (q, k, v)):
             raise NotImplementedError(
                 "the flash-attention kernel has no backward; train with "
@@ -153,7 +164,7 @@ def attention(params, x, *, n_heads, n_kv_heads, head_dim,
                                      v.contiguous(), causal=True, window=window)
     else:
         mask = None
-        if causal:
+        if kv_override is None and causal:
             mask = causal_mask(s, k.shape[1], window=window, device=x.device)
         out = _sdpa(q, k, v, mask)
     return dense(params["wo"], out.reshape(b, s, n_heads * head_dim))
@@ -173,12 +184,18 @@ def init_kv_cache(batch, n_kv_heads, head_dim, cache_len, dtype, device=None):
 
 
 def decode_attention(params, x, cache, pos, *, n_heads, n_kv_heads, head_dim,
-                     rope_theta=1e4, window=0, use_rope=True):
+                     rope_theta=1e4, m_rope=False, mrope_sections=(16, 24, 24),
+                     window=0, kv_override=None, use_rope=True):
     """One-token decode. x: (B, 1, D); pos: int, the absolute position.
 
     Full attention: cache length = max context; slot ``pos`` is written.
     Sliding window: the cache is a ring buffer of length ``window``;
-    slot ``pos % window`` is overwritten. Returns (y, cache).
+    slot ``pos % window`` is overwritten. Returns (y, cache). With M-RoPE
+    the three position rows are all ``pos``, as in the JAX package.
+
+    kv_override: (B, T, D) encoder memory. The step then attends over
+    the memory's keys and values, formed anew each step as the JAX
+    package does, and returns ``cache`` untouched.
 
     The new k and v are written into ``cache`` in place and the same
     tensors are returned. The JAX package returns an updated copy
@@ -187,12 +204,23 @@ def decode_attention(params, x, cache, pos, *, n_heads, n_kv_heads, head_dim,
     """
     b = x.shape[0]
     q = _split_heads(dense(params["wq"], x), n_heads, head_dim)
+    if kv_override is not None:
+        k = _split_heads(dense(params["wk"], kv_override), n_kv_heads, head_dim)
+        v = _split_heads(dense(params["wv"], kv_override), n_kv_heads, head_dim)
+        out = _sdpa(q, k, v, None)
+        return dense(params["wo"], out.reshape(b, 1, n_heads * head_dim)), cache
+
     k_new = _split_heads(dense(params["wk"], x), n_kv_heads, head_dim)
     v_new = _split_heads(dense(params["wv"], x), n_kv_heads, head_dim)
     if use_rope:
         posv = torch.full((b, 1), pos, device=x.device)
-        q = apply_rope(q, posv, rope_theta)
-        k_new = apply_rope(k_new, posv, rope_theta)
+        if m_rope:
+            posv3 = posv.expand((3,) + posv.shape)
+            q = apply_mrope(q, posv3, rope_theta, mrope_sections)
+            k_new = apply_mrope(k_new, posv3, rope_theta, mrope_sections)
+        else:
+            q = apply_rope(q, posv, rope_theta)
+            k_new = apply_rope(k_new, posv, rope_theta)
 
     cache_len = cache["k"].shape[2]
     slot = (pos % cache_len) if window > 0 else pos

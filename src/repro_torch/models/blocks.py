@@ -1,21 +1,22 @@
 """Residual blocks — the units the stacks loop over.
 
-Port of ``repro.models.blocks`` for the ``attn_mlp`` block (pre-norm
+Port of ``repro.models.blocks``: the ``attn_mlp`` block (pre-norm
 attention + MLP), the ``attn_moe`` block (pre-norm attention +
-Mixture-of-Experts FFN, :mod:`repro_torch.models.moe`) and the
-recurrent kinds ``mamba2``, ``mlstm`` and ``slstm``
-(:mod:`repro_torch.models.ssm`). Each kind provides::
+Mixture-of-Experts FFN, :mod:`repro_torch.models.moe`), the recurrent
+kinds ``mamba2``, ``mlstm`` and ``slstm`` (:mod:`repro_torch.models.ssm`),
+and whisper's encoder-decoder kinds: ``enc_attn_mlp`` (bidirectional,
+no decode) and ``xattn`` (causal self-attention, cross attention over
+the encoder memory, MLP). Each kind provides::
 
     init_<kind>(key, cfg)                     -> params
     apply_<kind>(params, x, ctx, cfg)         -> (x, aux)
     state_<kind>(cfg, batch, cache_len, dtype, device) -> decode state
     decode_<kind>(params, x, state, pos, ctx, cfg)     -> (x, state)
 
-``ctx`` is a dict with: positions, window, use_flash (the prefill's
-attention through K3 and its scan through K4). The encoder-decoder
-kinds of the JAX package (enc_attn_mlp, xattn) come with whisper-tiny;
-:func:`get_block` raises ``NotImplementedError`` for them. A decode step
-writes the block's state in place and returns it.
+``ctx`` is a dict with: positions, memory (the encoder output, or
+None), window, use_flash (the prefill's causal self-attention through
+K3 and its scan through K4). A decode step writes the block's state in
+place and returns it.
 """
 
 from __future__ import annotations
@@ -41,13 +42,6 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.moe import apply_moe, init_moe
 
-#: Where the parts of the LM zoo the port does not run yet are queued:
-#: vision tokens and M-RoPE (qwen2-vl-2b), the encoder-decoder with its
-#: ``enc_attn_mlp`` and ``xattn`` blocks, and sinusoidal positions
-#: (whisper-tiny).
-NOT_PORTED = "ROADMAP Queue 1 step 8"
-
-
 # ------------------------------------------------------------------- MLP
 
 def init_mlp(key, d_model, d_ff, dtype, use_bias=False, gated=True):
@@ -71,7 +65,8 @@ def apply_mlp(params, x, act="silu"):
 
 def _attn_kwargs(cfg):
     return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta)
+                head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+                m_rope=cfg.m_rope, mrope_sections=cfg.mrope_sections)
 
 
 def _decode_attn_kwargs(cfg):
@@ -94,10 +89,10 @@ def init_attn_mlp(key, cfg):
     }
 
 
-def apply_attn_mlp(params, x, ctx, cfg):
+def apply_attn_mlp(params, x, ctx, cfg, causal=True):
     h = apply_norm(params["ln1"], x, cfg.norm)
     h = attention(params["attn"], h, positions=ctx.get("positions"),
-                  causal=True, window=ctx.get("window", 0),
+                  causal=causal, window=ctx.get("window", 0),
                   use_flash=ctx.get("use_flash", False), **_attn_kwargs(cfg))
     x = x + h
     h = apply_norm(params["ln2"], x, cfg.norm)
@@ -264,6 +259,65 @@ def decode_slstm_block(params, x, state, pos, ctx, cfg):
     return x, state
 
 
+# --------------------------------------------- encoder block (no mask)
+
+def init_enc_attn_mlp(key, cfg):
+    return init_attn_mlp(key, cfg)
+
+
+def apply_enc_attn_mlp(params, x, ctx, cfg):
+    return apply_attn_mlp(params, x, ctx, cfg, causal=False)
+
+
+# ------------------------------------- enc-dec decoder block (whisper)
+
+def init_xattn(key, cfg):
+    k1, k2, k3 = trandom.split(key, 3)
+    return {
+        "ln1": norm_init(cfg.d_model, cfg.dtype, cfg.norm, key.device),
+        "self": init_attention(k1, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.resolved_head_dim, cfg.dtype, cfg.use_bias),
+        "ln2": norm_init(cfg.d_model, cfg.dtype, cfg.norm, key.device),
+        "cross": init_attention(k2, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.resolved_head_dim, cfg.dtype, cfg.use_bias),
+        "ln3": norm_init(cfg.d_model, cfg.dtype, cfg.norm, key.device),
+        "mlp": init_mlp(k3, cfg.d_model, cfg.d_ff, cfg.dtype, cfg.use_bias,
+                        gated=cfg.gated_mlp),
+    }
+
+
+def apply_xattn(params, x, ctx, cfg):
+    h = apply_norm(params["ln1"], x, cfg.norm)
+    x = x + attention(params["self"], h, positions=ctx.get("positions"),
+                      causal=True, window=ctx.get("window", 0),
+                      use_flash=ctx.get("use_flash", False),
+                      **_attn_kwargs(cfg))
+    h = apply_norm(params["ln2"], x, cfg.norm)
+    x = x + attention(params["cross"], h, kv_override=ctx["memory"],
+                      **_attn_kwargs(cfg))
+    h = apply_norm(params["ln3"], x, cfg.norm)
+    x = x + apply_mlp(params["mlp"], h, act=cfg.act)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+state_xattn = state_attn_mlp
+
+
+def decode_xattn(params, x, state, pos, ctx, cfg):
+    h = apply_norm(params["ln1"], x, cfg.norm)
+    h, state = decode_attention(params["self"], h, state, pos,
+                                window=ctx.get("window", 0),
+                                **_decode_attn_kwargs(cfg))
+    x = x + h
+    h = apply_norm(params["ln2"], x, cfg.norm)
+    h, _ = decode_attention(params["cross"], h, None, pos,
+                            kv_override=ctx["memory"], **_attn_kwargs(cfg))
+    x = x + h
+    h = apply_norm(params["ln3"], x, cfg.norm)
+    x = x + apply_mlp(params["mlp"], h, act=cfg.act)
+    return x, state
+
+
 # -------------------------------------------------------------- registry
 
 class BlockDef(NamedTuple):
@@ -284,16 +338,12 @@ BLOCKS = {
                       decode_mlstm_block),
     "slstm": BlockDef(init_slstm_block, apply_slstm_block, state_slstm_block,
                       decode_slstm_block),
+    "enc_attn_mlp": BlockDef(init_enc_attn_mlp, apply_enc_attn_mlp),
+    "xattn": BlockDef(init_xattn, apply_xattn, state_xattn, decode_xattn),
 }
-
-#: Block kinds of the JAX package that the port does not run yet.
-UNPORTED = ("enc_attn_mlp", "xattn")
 
 
 def get_block(kind: str) -> BlockDef:
     if kind in BLOCKS:
         return BLOCKS[kind]
-    if kind in UNPORTED:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet ({NOT_PORTED})")
     raise ValueError(f"unknown block kind {kind!r}")

@@ -1,8 +1,7 @@
 """Shared model pieces: initializers, the dense layer, norms, rotary.
 
 Port of ``repro.models.common`` without its sharding hints (the port
-runs on one card) and without M-RoPE (qwen2-vl, ROADMAP Queue 1 step
-8). Parameters are plain nested dicts of tensors; every layer is an
+runs on one card). Parameters are plain nested dicts of tensors; every layer is an
 ``init_*(key, ...) -> params`` plus a pure apply function. Dense weights
 are ``(d_in, d_out)``, as in the JAX package.
 """
@@ -85,6 +84,26 @@ def apply_rope(x, positions, theta=1e4):
     freqs = rope_freqs(dh, theta, x.device)  # (Dh/2,)
     ang = positions[..., None].to(torch.float32) * freqs  # (..., S, Dh/2)
     ang = ang[..., None, :]  # head axis
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, theta=1e4, sections=(16, 24, 24)):
+    """Qwen2-VL M-RoPE [arXiv:2409.12191]: the Dh/2 frequency slots are
+    split into (temporal, height, width) sections, each rotated by its
+    own position row. positions3: (3, ..., S). With three equal rows it
+    gives :func:`apply_rope`'s bits."""
+    dh = x.shape[-1]
+    half = dh // 2
+    sections = tuple(sections)
+    assert sum(sections) == half, (sections, half)
+    freqs = rope_freqs(dh, theta, x.device)  # (half,)
+    pos = torch.cat([positions3[i][..., None].to(torch.float32).expand(
+        positions3[i].shape + (sec,)) for i, sec in enumerate(sections)],
+        dim=-1)  # (..., S, half)
+    ang = (pos * freqs)[..., None, :]  # head axis
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

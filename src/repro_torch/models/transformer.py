@@ -23,20 +23,22 @@ dense layers; JAX's ``dots_with_no_batch_dims_saveable``). Recomputing
 runs the same ops on the same inputs, so the loss and gradients are
 those of a run without remat, bit for bit.
 
-What the port does not run yet raises ``NotImplementedError`` naming
-ROADMAP Queue 1 step 8: vision tokens and M-RoPE (qwen2-vl-2b), and the
-encoder-decoder with its block kinds ``enc_attn_mlp`` and ``xattn`` and
-sinusoidal positions (whisper-tiny).
+Every config of the JAX package runs: vision tokens spliced over the
+first embeddings and M-RoPE's three position rows (qwen2-vl-2b), and
+the encoder-decoder with sinusoidal positions (whisper-tiny), whose
+encoder runs once a prefill and whose memory a decode step takes.
 
 Public entry points:
   init_lm / forward / per_example_loss      — training & prefill
   hidden_states                             — the stack output, pre-head
   init_decode_state / decode_step           — serving (1 token, KV cache)
+  encode                                    — whisper encoder
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -50,7 +52,7 @@ from repro_torch import random as trandom
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.blocks import NOT_PORTED, get_block
+from repro_torch.models.blocks import get_block
 from repro_torch.models.common import (
     apply_norm,
     dense_init,
@@ -59,28 +61,35 @@ from repro_torch.models.common import (
 )
 
 
-def check_ported(cfg: ArchConfig):
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
-    missing = []
-    if cfg.enc_dec:
-        missing.append("the encoder-decoder")
-    if cfg.n_vision_tokens:
-        missing.append("vision tokens")
-    if cfg.m_rope:
-        missing.append("M-RoPE")
-    if cfg.pos_embed not in ("rope", "none"):
-        missing.append(f"pos_embed={cfg.pos_embed!r}")
-    for kind, _, _ in cfg.resolved_superblock:
-        get_block(kind)
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet ({NOT_PORTED})")
+def _sinusoidal_freqs(d_model, device=None):
+    """The d_model/2 f32 frequencies ``exp(-log(1e4)·i/half)``, in the JAX
+    package's order of f32 operations. The two libraries' f32 ``exp``
+    may round a frequency to neighbouring floats."""
+    half = d_model // 2
+    log_1e4 = torch.tensor(math.log(10000.0), dtype=torch.float32)
+    return torch.exp(-log_1e4 * torch.arange(half, dtype=torch.float32,
+                                             device=device) / half)
+
+
+def sinusoidal(positions, d_model):
+    """positions: (...,) int -> (..., d_model) float32 sinusoidal embeds,
+    ``[sin, cos]`` of the positions times :func:`_sinusoidal_freqs`."""
+    freqs = _sinusoidal_freqs(d_model, positions.device)
+    ang = positions[..., None].to(torch.float32) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _encoder_superblock(cfg: ArchConfig):
+    return (("enc_attn_mlp", cfg.n_enc_layers, False),)
 
 
 def _default_positions(cfg: ArchConfig, b, s, device):
     if cfg.pos_embed != "rope":
         return None
-    return torch.arange(s, device=device)[None, :].expand(b, s)
+    pos = torch.arange(s, device=device)[None, :].expand(b, s)
+    if cfg.m_rope:
+        return pos[None].expand(3, b, s)
+    return pos
 
 
 def _seg_key(idx: int) -> str:
@@ -128,8 +137,7 @@ def _init_segments(key, cfg: ArchConfig, superblock, n_super):
 def init_lm(key, cfg: ArchConfig):
     """Parameters on ``key``'s device, drawn with the JAX package's
     threefry bits (normal draws agree to f32 ``rtol=1e-5``)."""
-    check_ported(cfg)
-    k_embed, k_stack, k_head, _ = trandom.split(key, 4)
+    k_embed, k_stack, k_head, k_enc = trandom.split(key, 4)
     params = {
         "embed": {"w": normal_init(k_embed, (cfg.vocab, cfg.d_model),
                                    cfg.dtype, cfg.d_model ** -0.5)},
@@ -140,6 +148,12 @@ def init_lm(key, cfg: ArchConfig):
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(k_head, cfg.d_model, cfg.vocab,
                                        cfg.dtype)
+    if cfg.enc_dec:
+        params["encoder"] = {
+            "stack": _init_segments(k_enc, cfg, _encoder_superblock(cfg), 1),
+            "final_norm": norm_init(cfg.d_model, cfg.dtype, cfg.norm,
+                                    key.device),
+        }
     return params
 
 
@@ -192,18 +206,21 @@ def _per_super(tree, shared, n_super, per_call=False):
     return [_tree_unbind(tree)]
 
 
-def apply_stack(params, cfg: ArchConfig, x, ctx):
+def apply_stack(params, cfg: ArchConfig, x, ctx, superblock=None,
+                n_super=None):
     """Every super-block in turn, its segments in order; remat (when on)
-    wraps each call of a block, shared or not."""
+    wraps each call of a block, shared or not. ``superblock`` and
+    ``n_super`` default to the config's (the encoder passes its own)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    superblock = cfg.resolved_superblock
+    superblock = superblock or cfg.resolved_superblock
+    n_super = n_super or cfg.n_super
     segments = []
     for idx, (kind, _, shared) in enumerate(superblock):
         apply = get_block(kind).apply
         layer = _remat(cfg, lambda p, x, apply=apply: apply(p, x, ctx, cfg))
         segments.append((layer, _per_super(params[_seg_key(idx)], shared,
-                                           cfg.n_super)))
-    for sup in range(cfg.n_super):
+                                           n_super)))
+    for sup in range(n_super):
         for layer, layers in segments:
             for p in layers[sup]:
                 x, a = layer(p, x)
@@ -211,12 +228,26 @@ def apply_stack(params, cfg: ArchConfig, x, ctx):
     return x, aux
 
 
-def _make_ctx(cfg: ArchConfig, positions, window=None):
+def _make_ctx(cfg: ArchConfig, positions, memory=None, window=None):
     return {
         "positions": positions,
+        "memory": memory,
         "window": cfg.sliding_window if window is None else window,
         "use_flash": cfg.use_flash,
     }
+
+
+def encode(params, cfg: ArchConfig, audio_feats):
+    """Whisper encoder over stub frontend features (B, enc_len, d_model):
+    sinusoidal positions, the bidirectional ``enc_attn_mlp`` layers, the
+    encoder's final norm."""
+    x = audio_feats.to(cfg.dtype)
+    pos = sinusoidal(torch.arange(x.shape[1], device=x.device), cfg.d_model)
+    x = x + pos.to(cfg.dtype)[None]
+    x, _ = apply_stack(params["encoder"]["stack"], cfg, x,
+                       _make_ctx(cfg, None),
+                       superblock=_encoder_superblock(cfg), n_super=1)
+    return apply_norm(params["encoder"]["final_norm"], x, cfg.norm)
 
 
 def _embed(params, cfg, tokens):
@@ -233,21 +264,40 @@ def _head(params, cfg, x):
     return x @ w
 
 
-def hidden_states(params, cfg: ArchConfig, tokens, *, positions=None,
-                  window=None):
-    """tokens: (B, S) -> (hidden (B,S,D), aux) — stack output, pre-head."""
-    check_ported(cfg)
+def hidden_states(params, cfg: ArchConfig, tokens, *, vision_embeds=None,
+                  audio_feats=None, positions=None, window=None):
+    """tokens: (B, S) -> (hidden (B,S,D), aux) — stack output, pre-head.
+
+    vision_embeds (B, nv, D) replace the first nv token embeddings (a
+    vision-token config); audio_feats (B, enc_len, D) go through
+    :func:`encode`, whose output the decoder's cross attention reads (an
+    encoder-decoder config). positions: (B, S), or (3, B, S) for M-RoPE;
+    by default every row is ``arange(S)``."""
     b, s = tokens.shape
     x = _embed(params, cfg, tokens)
+    if cfg.n_vision_tokens and vision_embeds is not None:
+        nv = vision_embeds.shape[1]
+        x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
+    if cfg.pos_embed == "sinusoidal":
+        pos = sinusoidal(torch.arange(s, device=x.device), cfg.d_model)
+        x = x + pos.to(x.dtype)[None]
+    memory = None
+    if cfg.enc_dec:
+        if audio_feats is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
+                             f"audio_feats (B, enc_len, d_model)")
+        memory = encode(params, cfg, audio_feats)
     if positions is None:
         positions = _default_positions(cfg, b, s, tokens.device)
-    ctx = _make_ctx(cfg, positions, window=window)
+    ctx = _make_ctx(cfg, positions, memory=memory, window=window)
     return apply_stack(params["stack"], cfg, x, ctx)
 
 
-def forward(params, cfg: ArchConfig, tokens, *, positions=None, window=None):
+def forward(params, cfg: ArchConfig, tokens, *, vision_embeds=None,
+            audio_feats=None, positions=None, window=None):
     """tokens: (B, S) -> (logits (B,S,V), aux)."""
-    x, aux = hidden_states(params, cfg, tokens, positions=positions,
+    x, aux = hidden_states(params, cfg, tokens, vision_embeds=vision_embeds,
+                           audio_feats=audio_feats, positions=positions,
                            window=window)
     return _head(params, cfg, x), aux
 
@@ -272,17 +322,16 @@ def _chunked_ce(params, cfg, hidden, labels, chunk):
 
 def per_example_loss(params, cfg: ArchConfig, batch, window=None):
     """Causal-LM cross entropy -> ((B,) per-example losses, aux)."""
-    extra = sorted(set(batch) & {"vision_embeds", "audio_feats"})
-    if extra:
-        raise NotImplementedError(
-            f"{', '.join(extra)} not ported yet ({NOT_PORTED})")
     labels = batch["labels"]
+    modality = dict(vision_embeds=batch.get("vision_embeds"),
+                    audio_feats=batch.get("audio_feats"))
     if cfg.loss_chunk and labels.shape[1] % cfg.loss_chunk == 0 \
             and "loss_mask" not in batch:
         hidden, aux = hidden_states(params, cfg, batch["tokens"],
-                                    window=window)
+                                    window=window, **modality)
         return _chunked_ce(params, cfg, hidden, labels, cfg.loss_chunk), aux
-    logits, aux = forward(params, cfg, batch["tokens"], window=window)
+    logits, aux = forward(params, cfg, batch["tokens"], window=window,
+                          **modality)
     ce = _ce_from_logits(logits, labels)  # (B, S)
     if "loss_mask" in batch:
         m = batch["loss_mask"].to(torch.float32)
@@ -306,7 +355,6 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int, dtype=None,
                       device=None):
     """Zero decode state mirroring the stack layout: per segment, each
     leaf of the block's state with the segment's leading axes."""
-    check_ported(cfg)
     dtype = dtype or cfg.dtype
     device = resolve_device(device)
     superblock = cfg.resolved_superblock
@@ -343,13 +391,15 @@ def decode_stack(params, cfg: ArchConfig, x, states, pos, ctx):
 
 def decode_step(params, cfg: ArchConfig, tokens, states, pos, *,
                 memory=None, window=None):
-    """One serving step. tokens: (B, 1); pos: int, the absolute position.
-    Returns (logits (B, vocab), states), the states updated in place."""
-    check_ported(cfg)
-    if memory is not None:
-        raise NotImplementedError(f"encoder memory is not ported yet ({NOT_PORTED})")
+    """One serving step. tokens: (B, 1); pos: int, the absolute position;
+    memory: the encoder output of an encoder-decoder config
+    (:func:`encode`). Returns (logits (B, vocab), states), the states
+    updated in place."""
     x = _embed(params, cfg, tokens)
-    ctx = _make_ctx(cfg, None, window=window)
+    if cfg.pos_embed == "sinusoidal":
+        pos_t = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+        x = x + sinusoidal(pos_t, cfg.d_model).to(x.dtype)[None]
+    ctx = _make_ctx(cfg, None, memory=memory, window=window)
     x, states = decode_stack(params["stack"], cfg, x, states, pos, ctx)
     logits = _head(params, cfg, x)
     return logits[:, 0], states

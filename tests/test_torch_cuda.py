@@ -65,6 +65,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (a worker's share of the cores)
 
 from repro_torch import random as trandom
 from repro_torch.core import (ClientSimulator, DeterministicArrivals,
@@ -534,6 +535,12 @@ K3_CASES = [  # (B, H, Hkv, S, T, Dh), causal, window, dtype
     ((2, 40, 8, 256, 256, 128), True, 0, torch.bfloat16),
     ((1, 64, 8, 300, 300, 128), True, 0, torch.bfloat16),
     ((2, 32, 8, 256, 256, 128), True, 0, torch.bfloat16),
+    # qwen2-vl-2b's prefill (12 heads over 2 kv heads of 128) and
+    # whisper-tiny's decoder self-attention (6 heads of 64 over its
+    # 448-token text context, no multiple of the 128-row tile), each at
+    # the model's B = 8.
+    ((8, 12, 2, 2048, 2048, 128), True, 0, torch.bfloat16),
+    ((8, 6, 6, 448, 448, 64), True, 0, torch.bfloat16),
 ]
 
 

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (a worker's share of the cores)
 
 from repro.core import energy as jenergy
 from repro.core import scheduling as jsched

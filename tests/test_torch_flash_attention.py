@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (a worker's share of the cores)
 
 from repro.kernels.flash_attention.flash_attention import flash_attention_kernel
 from repro.kernels.flash_attention.ref import flash_attention_ref as j_ref

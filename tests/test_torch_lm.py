@@ -24,6 +24,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (a worker's share of the cores)
 
 from repro.configs import get_config as j_get_config
 from repro.launch.steps import make_prefill_step as j_prefill
@@ -267,20 +268,6 @@ def test_bf16_tree_runs_through_the_port():
     # bf16 activations round at slightly different points in the two
     # frameworks; a few bf16 steps of the largest logit.
     assert np.abs(got - want).max() <= 8 * 2 ** -8 * np.abs(want).max()
-
-
-def test_unported_options_raise():
-    _, tcfg = _cfgs()
-    key = trandom.PRNGKey(0, device="cpu")
-    for bad in (tcfg.replace(superblock=(("xattn", 2, False),)),
-                tcfg.replace(m_rope=True),
-                tcfg.replace(pos_embed="sinusoidal"),
-                tcfg.replace(enc_dec=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 step 8"):
-            tt.init_lm(key, bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 step 8"):
-        t_prefill(tcfg)({}, {"tokens": torch.zeros(1, 2, dtype=torch.long),
-                             "vision_embeds": None})
 
 
 def test_entry_points_default_to_the_card():

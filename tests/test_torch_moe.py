@@ -30,6 +30,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (a worker's share of the cores)
 
 from repro.configs import get_config as j_get_config
 from repro.configs.base import ArchConfig as JArchConfig

@@ -11,11 +11,14 @@ computed over slices of its flat index (``DRAW_SLICE`` elements at a
 time); the slices give the bits of one draw.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (a worker's share of the cores)
 
 from repro.core import energy as jenergy
 from repro_torch import random as trandom
@@ -99,17 +102,20 @@ def test_client_draws_bitwise_per_row(seed):
 @pytest.mark.parametrize("slice_", [7, 1000, 4096])
 def test_draws_in_slices_are_one_draw(monkeypatch, slice_):
     """``random_bits``, ``uniform`` and ``normal`` drawn in slices (a
-    shape of 37,037 elements, a multiple of none of the slices) give the
-    unsliced draw's bits, JAX's for the bits and uniform; a batched key
-    likewise."""
+    shape a multiple of none of the slices: 407 elements in 59 slices of
+    7, 37,037 in slices of 1,000 and 4,096) give the unsliced draw's
+    bits, JAX's for the bits and uniform; a batched key likewise."""
     jk = jax.random.split(jax.random.PRNGKey(5), 3)[1]
     tk = trandom.split(trandom.PRNGKey(5, device="cpu"), 3)[1]
     batched = trandom.split(trandom.PRNGKey(6, device="cpu"), 3)
-    shape = (37, 1001)
+    # Slices of 7 over 37,037 elements would be 5,291 Python-level draws
+    # a call; 407 elements keep the last slice ragged (407 = 58·7 + 1).
+    shape = (37, 11) if slice_ == 7 else (37, 1001)
     draws = (("random_bits", ()), ("uniform", (-2.0, 3.0)), ("normal", ()))
     whole = {(name, k.dim()): _np(getattr(trandom, name)(k, shape, *args))
              for k in (tk, batched) for name, args in draws}
     assert trandom.DRAW_SLICE > 37 * 1001
+    assert math.prod(shape) % slice_ and math.prod(shape) > slice_
     monkeypatch.setattr(trandom, "DRAW_SLICE", slice_)
     for k in (tk, batched):
         for name, args in draws:

@@ -34,6 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (a worker's share of the cores)
 
 from repro.core import make_quadratic as j_make_quadratic
 from repro.core.trainer import ClientSimulator as JSim

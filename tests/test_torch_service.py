@@ -44,6 +44,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (a worker's share of the cores)
 
 import repro.checkpoint as jckpt
 import repro.experiments as jx

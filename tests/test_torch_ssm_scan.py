@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (a worker's share of the cores)
 
 from repro.kernels.ssm_scan import gla_scan as j_gla_scan
 from repro.kernels.ssm_scan import gla_scan_ref as j_gla_scan_ref

@@ -5,16 +5,15 @@ on the CPU. The model is a 2-layer reduced stablelm (``reduced()`` with
 two ``attn_mlp`` layers: d_model 256, 4 heads of 64, d_ff 512, vocab
 512, f32), one JAX parameter tree carried into the port
 (``params_from_jax``); JAX's train steps are its own
-``build_energy_train_step`` and ``launch.train.main``, which do not
-reach ``run_carry(donate=True)`` (ROADMAP R1).
+``build_energy_train_step``, which does not reach
+``run_carry(donate=True)`` (ROADMAP R1). The train driver's tests are in
+``tests/test_torch_train_driver.py``.
 
 Held:
 - bitwise: ``per_example_coefficients`` (scalar and per-client b),
   ``iid_partition`` and ``dirichlet_partition``, ``GlobalBatcher``
-  (IID and with ``client_index``), the driver's active clients and Σω a
-  step, scheduler and energy state and the batch key across a resume
-  between packages; inside the port, remat on against off, a masked
-  client's data, flat against per-leaf, halt and resume;
+  (IID and with ``client_index``); inside the port, remat on against
+  off, a masked client's data, flat against per-leaf;
 - ``per_example_loss`` ``rtol=1e-5`` (plain, ``loss_chunk``,
   ``loss_mask``, ``window``); the quadratic train steps of
   ``tests/test_trainer_spmd.py`` ``rtol=1e-5``;
@@ -24,21 +23,17 @@ Held:
   params to ``atol = 2·lr·steps`` (Adam's first steps move a parameter
   by about ``lr·sign(g)``, so a near-zero gradient whose sign differs by
   sum order moves it by up to 2·lr);
-- the driver's loss stream against JAX's ``main`` ``rtol=1e-4``, and
-  the loss tail of a run resumed in the other package likewise;
 - the bf16 plain attention's gradient against ``jax.grad`` of JAX's
   ``_sdpa`` to a few bf16 roundings of its largest value.
 """
-
-import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (a worker's share of the cores)
 
-import repro.launch.train as j_train
 from repro.configs import get_config as j_get_config
 from repro.core import aggregation as jagg
 from repro.core.trainer import build_energy_train_step as j_build
@@ -58,7 +53,6 @@ from repro_torch.convert import params_from_jax, train_state_from_jax
 from repro_torch.core import aggregation as tagg
 from repro_torch.core.trainer import build_energy_train_step as t_build
 from repro_torch.data import GlobalBatcher, dirichlet_partition, iid_partition
-from repro_torch.launch import train as t_train
 from repro_torch.launch.steps import make_sgd_train_step as t_sgd_step
 from repro_torch.launch.steps import make_train_step as t_train_step
 from repro_torch.models import transformer as tt
@@ -521,141 +515,3 @@ def test_make_train_step_adamw_matches_jax(params):
                                 jax.tree_util.tree_leaves(jstate.params)))
     assert worst <= 2 * lr * steps, worst
     assert int(tstate.opt_state.step) == int(jstate.opt_state.step) == steps
-
-
-# ------------------------------------------------------------- the driver
-
-def _driver_args(ckdir, *extra):
-    """``tests/test_resumable.py``'s arguments."""
-    return ["--arch", "stablelm-1.6b", "--reduced",
-            "--steps", "12", "--global-batch", "4",
-            "--seq-len", "16", "--n-clients", "4",
-            "--scheduler", "alg1", "--arrivals", "periodic",
-            "--ckpt-every", "6", "--checkpoint-dir", str(ckdir), *extra]
-
-
-class _RecordingJax:
-    """``jax`` for ``repro.launch.train``, with ``jax.jit`` recording the
-    metrics every jitted train step returns."""
-
-    def __init__(self, log):
-        self._log = log
-
-    def __getattr__(self, name):
-        return getattr(jax, name)
-
-    def jit(self, fn, **kw):
-        jitted = jax.jit(fn, **kw)
-
-        def call(*args):
-            out = jitted(*args)
-            if isinstance(out, tuple) and len(out) == 2 and isinstance(out[1], dict):
-                self._log.append({k: np.asarray(v) for k, v in out[1].items()})
-            return out
-        return call
-
-
-def _jax_main(argv, monkeypatch):
-    log = []
-    with monkeypatch.context() as m:
-        m.setattr(j_train, "jax", _RecordingJax(log))
-        losses = j_train.main(argv)
-    return losses, log
-
-
-def _port_main(argv):
-    log = []
-    losses = t_train.main(argv + ["--device", "cpu"], on_step=lambda step, state, metrics: log.append(
-        {k: v.numpy().copy() for k, v in metrics.items()}))
-    return losses, log
-
-
-@pytest.fixture(scope="module")
-def jax_straight(tmp_path_factory):
-    d = tmp_path_factory.mktemp("jax_straight")
-    mp = pytest.MonkeyPatch()
-    try:
-        losses, log = _jax_main(_driver_args(d), mp)
-    finally:
-        mp.undo()
-    return d, losses, log
-
-
-def test_driver_matches_jax_main(jax_straight, tmp_path):
-    _, jlosses, jlog = jax_straight
-    losses, log = _port_main(_driver_args(tmp_path / "a"))
-    assert len(losses) == len(jlosses) == 12 and len(log) == len(jlog) == 12
-    np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
-    for got, want in zip(log, jlog):
-        np.testing.assert_array_equal(got["active_clients"], want["active_clients"])
-        np.testing.assert_array_equal(got["weight_sum"], want["weight_sum"])
-    assert {float(m["active_clients"]) for m in log} != {4.0}  # alg1 masks
-
-
-def test_driver_halt_and_resume_bitwise(tmp_path):
-    straight, _ = _port_main(_driver_args(tmp_path / "a"))
-    halted, _ = _port_main(_driver_args(tmp_path / "b", "--halt-at", "6"))
-    resumed, _ = _port_main(_driver_args(tmp_path / "b", "--resume"))
-    assert len(straight) == 12 and len(halted) == 6 and len(resumed) == 6
-    assert halted == straight[:6] and resumed == straight[6:]
-    a = np.load(tmp_path / "a" / "step_12.npz")
-    b = np.load(tmp_path / "b" / "step_12.npz")
-    assert sorted(a) == sorted(b)
-    for k in a:
-        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-
-
-def _loop_state(path):
-    """The scheduler state, energy state and batch key of a driver
-    checkpoint, by member name (the key words as int64)."""
-    with np.load(path) as z:
-        return {k: z[k].astype(np.int64) if k == "k_batch" else z[k]
-                for k in z if not k.startswith("state/")}
-
-
-def test_jax_halt_resumed_by_port(jax_straight, tmp_path, monkeypatch):
-    d, jlosses, _ = jax_straight
-    _jax_main(_driver_args(tmp_path, "--halt-at", "6"), monkeypatch)
-    resumed, _ = _port_main(_driver_args(tmp_path, "--resume"))
-    assert len(resumed) == 6
-    np.testing.assert_allclose(resumed, jlosses[6:], rtol=1e-4)
-    got, want = _loop_state(tmp_path / "step_12.npz"), _loop_state(d / "step_12.npz")
-    assert sorted(got) == sorted(want) and "k_batch" in got
-    assert any(k.startswith("sched_state/") for k in got)
-    for k in want:
-        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    with np.load(tmp_path / "step_12.npz") as z, np.load(d / "step_12.npz") as w:
-        assert sorted(z) == sorted(w)
-
-
-def test_port_halt_resumed_by_jax(jax_straight, tmp_path, monkeypatch):
-    d, jlosses, _ = jax_straight
-    halted, _ = _port_main(_driver_args(tmp_path, "--halt-at", "6"))
-    np.testing.assert_allclose(halted, jlosses[:6], rtol=1e-4)
-    resumed, _ = _jax_main(_driver_args(tmp_path, "--resume"), monkeypatch)
-    assert len(resumed) == 6
-    np.testing.assert_allclose(resumed, jlosses[6:], rtol=1e-4)
-    got, want = _loop_state(tmp_path / "step_12.npz"), _loop_state(d / "step_12.npz")
-    for k in want:
-        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-
-
-def test_driver_runs_on_the_card_by_default():
-    if torch.cuda.is_available():
-        pytest.skip("a card is present: the default device is valid")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        t_train.main(["--arch", "stablelm-1.6b", "--reduced", "--steps", "1"])
-    from importlib import util
-    spec = util.spec_from_file_location(
-        "train_lm_example", os.path.join(os.path.dirname(__file__), "..",
-                                         "examples_torch", "train_lm.py"))
-    example = util.module_from_spec(spec)
-    spec.loader.exec_module(example)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        example.main(["--steps", "1"])
-
-
-def test_driver_refuses_resume_without_a_directory():
-    with pytest.raises(SystemExit, match="--checkpoint-dir"):
-        t_train.main(["--arch", "stablelm-1.6b", "--reduced", "--steps", "1",
-                      "--resume", "--device", "cpu"])

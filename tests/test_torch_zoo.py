@@ -17,7 +17,10 @@ dense stack) ``1e-5·|JAX|``; greedy serve tokens equal and logits
 ``1e-4``; in bf16 (one bf16 JAX tree carried over) the prefill within
 ``8·2⁻⁸·max|JAX|``, as ``tests/test_torch_lm.py`` holds stablelm's. K3's
 wrapper at the two new GQA ratios (56/8 and 40/8 heads of 128) against
-JAX's plain attention ``1e-5``.
+JAX's plain attention ``1e-5``. The registry holds the JAX package's ten
+configs, each with its fields; qwen2-vl-2b's and whisper-tiny's parity
+tests are ``tests/test_torch_qwen2_vl.py`` and
+``tests/test_torch_whisper.py``.
 """
 
 import dataclasses
@@ -27,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401 (a worker's share of the cores)
 
 from repro.configs import REGISTRY as J_REGISTRY
 from repro.configs import get_config as j_get_config
@@ -44,6 +48,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.launch.steps import make_prefill_step as t_prefill
 from repro_torch.launch.steps import make_serve_step as t_serve
 from repro_torch.models import transformer as tt
+from repro_torch.models.blocks import BLOCKS, get_block
 from repro_torch.models.common import count_params
 
 NAMES = ("minitron-4b", "deepseek-coder-33b", "command-r-35b",
@@ -77,7 +82,7 @@ def _tokens(vocab, seed=0, s=S):
     return np.random.default_rng(seed).integers(0, vocab, (B, s)).astype(np.int32)
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", NAMES + ("qwen2-vl-2b", "whisper-tiny"))
 def test_full_width_config_matches_jax(name):
     j, t = j_get_config(name), t_get_config(name)
     jf = {f.name: getattr(j, f.name) for f in dataclasses.fields(j)}
@@ -85,31 +90,29 @@ def test_full_width_config_matches_jax(name):
     assert jf == tf
     assert t.dtype == torch.bfloat16
     assert t.resolved_superblock == j.resolved_superblock
-    assert t.resolved_superblock[0][0] == ("attn_moe" if name in MOE
-                                           else "attn_mlp")
+    kind = {"whisper-tiny": "xattn"}.get(
+        name, "attn_moe" if name in MOE else "attn_mlp")
+    assert t.resolved_superblock[0][0] == kind
 
 
 def test_registry_serves_all_but_two_configs():
-    """The port serves 8 of the JAX package's 10 configs; ``check_ported``
-    refuses the other two, naming what they need."""
-    assert sorted(arch_names()) == sorted(set(J_REGISTRY) - {
-        "qwen2-vl-2b", "whisper-tiny"})
+    """The port registers all ten of the JAX package's configs with
+    equal fields (the name is from when it served eight), and each
+    builds without a refusal: every block kind of its stack and of its
+    encoder resolves, and its decode state forms at ``reduced()`` size."""
+    assert sorted(arch_names()) == sorted(J_REGISTRY) and len(J_REGISTRY) == 10
     for name, jcfg in J_REGISTRY.items():
         fields = {f.name: getattr(jcfg, f.name)
                   for f in dataclasses.fields(jcfg)}
         cfg = TArchConfig(**fields)
-        if name in arch_names():
-            tt.check_ported(cfg)
-            continue
-        need = {"qwen2-vl-2b": "vision tokens, M-RoPE",
-                "whisper-tiny": "the encoder-decoder, pos_embed='sinusoidal'"}
-        with pytest.raises(NotImplementedError,
-                           match=f"{need[name]} not ported yet "
-                                 r"\(ROADMAP Queue 1 step 8\)"):
-            tt.check_ported(cfg.replace(superblock=(("attn_mlp", 1, False),)))
-        if name == "whisper-tiny":
-            with pytest.raises(NotImplementedError, match="'xattn'"):
-                tt.check_ported(cfg)
+        assert cfg == t_get_config(name)
+        kinds = [k for k, _, _ in cfg.resolved_superblock]
+        kinds += ["enc_attn_mlp"] if cfg.enc_dec else []
+        for kind in kinds:
+            assert get_block(kind) is BLOCKS[kind]
+        state = tt.init_decode_state(cfg.reduced(), 1, 4, device="cpu")
+        assert sorted(state) == [f"seg{i}" for i, (k, _, _) in enumerate(
+            cfg.resolved_superblock) if BLOCKS[k].state is not None]
 
 
 def test_init_lm_matches_jax(model):
