@@ -147,16 +147,17 @@ without printing its result line:
    within 2× the plain bf16 prefill's distance from the reference (the
    floor), and flash's argmax must equal the reference's on every row
    whose top-two gap exceeds 2× the floor. Then decode at B = 8 through
-   ``make_serve_step``: a 448-token prompt fed token by token into a
-   512-slot cache, its logits at position 447 held against the f32
-   reference prefill of those 448 tokens by the same rule, and 64
+   ``make_serve_step``: a 192-token prompt fed token by token into a
+   512-slot cache, its logits at position 191 held against the f32
+   reference prefill of those 192 tokens by the same rule, and 32
    greedy steps. ``torch.profiler`` over one prefill and one decode
    step, and the peak device memory.
 11. Train phase, on the LM phase's weights: the driver
    (``repro_torch.launch.train.main``) at stablelm-1.6b full width, remat
    on, B = 16 x S = 1,024 over 8 clients, alg1 on periodic arrivals,
    adamw 1e-4: one warm-up step, 6 timed (host clock after a
-   synchronise; median and spread), one under ``torch.profiler``. Prints
+   synchronise; median and spread), the last of them under
+   ``torch.profiler`` (the profiler started before its clock). Prints
    ms a step, tokens/s, the model FLOP a step and their share of the
    dense bf16 peak (``mfu``), the losses (finite, the last below the
    first), active clients and the weight sum a step, and the peak
@@ -186,9 +187,9 @@ without printing its result line:
    the f32 weights within 1e-2 of max|logit| of the reference, its
    argmax the reference's above twice that distance. Decode through
    ``make_serve_step``:
-   a 128-token prompt fed token by token into a 256-slot cache, its
-   logits at position 127 held against the f32 reference prefill of
-   those tokens by the same rule, then 32 greedy steps. One prefill under
+   a 64-token prompt fed token by token into a 256-slot cache, its
+   logits at position 63 held against the f32 reference prefill of
+   those tokens by the same rule, then 16 greedy steps. One prefill under
    ``torch.profiler``, tracing the device alone (top kernels, the
    device's busy share, K4's and K3's shares of the device time), and
    the peak device memory. Each line
@@ -208,14 +209,14 @@ without printing its result line:
    other experts, or dropped in one, is not held (PERF.md §2); the
    dropped share of the MoE dispatch's (token, k) assignments in the
    prefills, in a prefill of uniform tokens and in decode, and each
-   layer's; decode replay of a 128-token prompt into a 256-slot cache,
+   layer's; decode replay of a 64-token prompt into a 256-slot cache,
    held against the f32 reference prefill of the prompt (dense); for an
    MoE model, against an f32 replay through the same serve step by the
    same rule: first at a capacity that drops nothing (the floor the
    prompt's prefill at that capacity; and f32 against the f32 prefill
    of the prompt within 1e-2 of max|logit|), then at the decode step's
    capacity of one assignment an expert (the floor the replays without
-   drops); then 32 greedy steps. One phi3.5-moe prefill under
+   drops); then 16 greedy steps. One phi3.5-moe prefill under
    ``torch.profiler`` (host and device): K3, the MoE layer's router,
    dispatch, expert products and combine (its ``torch.profiler``
    ranges), and the rest, as shares of the device time. Each line
@@ -236,16 +237,41 @@ without printing its result line:
    three distinct position rows (the vision tokens on a 16 x 16 grid,
    the text after it), which must move the f32 reference by more than
    the floor, held by the same rule, 28 K3 launches; whisper's encoder
-   alone; decode replay of a 128-token prompt (qwen2-vl: text; whisper:
+   alone; decode replay of a 64-token prompt (qwen2-vl: text; whisper:
    through the encoder's memory) into a 256- or 448-slot cache, held
-   against the f32 reference prefill of the prompt, then 32 greedy
+   against the f32 reference prefill of the prompt, then 16 greedy
    steps; one prefill under ``torch.profiler`` (K3's share of the device
    time); the peak device memory. Each line carries the card's name and
    power limit.
-15. Prints the ``kernels`` JSON line (K1 and K2 also carry the engine,
+15. Zoo train phase: whisper-tiny (B = 16 x S = 448, 1,500 zero frames),
+   qwen2-vl-2b (B = 16 x S = 1,024, 256 synthetic patch embeddings a
+   row, given to the driver as ``side_inputs``: its own zero vision
+   tokens make full-depth training non-finite, ROADMAP R5), zamba2-2.7b
+   and xlstm-1.3b (B = 16 x S = 1,024) at full width and depth, and
+   phi3.5-moe-42b-a6.6b at 1 of its 32 layers, random bf16 weights from
+   seed 0, in turn, each freed before the next: the driver's run as in
+   the train phase (one warm-up step, the timed steps of ``ZOO_TRAIN``,
+   the last under ``torch.profiler``, the device alone): ms a step,
+   tokens/s, the model FLOP a step (matmul weights, an expert's at
+   top_k / E, and attention scores; not the recurrent scans) and
+   ``mfu``, the losses (finite, the last below the first), the peak
+   device memory, the profile's top kernels and busy share, and for
+   phi3.5 the dropped share a step. Step 0's batch loss in bf16 (equal
+   to the driver's) within 1e-2 of the same weights in f32. One adamw
+   step where alg1 masks a client, run again with the last masked
+   client's tokens replaced, deterministic algorithms on: the same
+   update bit for bit; phi3.5 bitwise at capacity factor E / top_k
+   without the aux loss, its move printed at its own capacity and with
+   the aux loss. zamba2's flat SGD route through K2 (its f32 SSM leaves
+   cast to bf16 for the one-dtype flat buffer), 1 step, counted, against
+   K2's plain version. Each line carries the card's name and power
+   limit.
+16. Prints the ``kernels`` JSON line (K1 and K2 also carry the engine,
    faults and serve phases' counts, ``engine_launches``,
-   ``faults_launches`` and ``serve_launches``; K2 the train phase's,
-   ``train_launches``, and its time at that shape, ``train_shape``; K3
+   ``faults_launches`` and ``serve_launches``; K2 the train phases'
+   flat SGD launches, ``train_launches`` (stablelm's under ``flat_sgd``,
+   zamba2's under its name), and its time at stablelm's shape,
+   ``train_shape``; K3
    and K4 the recurrent phase's, ``recurrent_launches``; K3 the zoo and
    multimodal phases', ``zoo_launches`` and ``mm_launches``; K4's
    ``launches`` are the recurrent prefills', its K4 phase's count
@@ -276,6 +302,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+T0 = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 # cuBLAS takes its workspace setting when CUDA starts: the train phase's
@@ -317,10 +344,13 @@ RECOVER_POPULATIONS = (20, 30, 40)
 # and the profiler's own cost grows with the ops it records.
 FAULT_PROFILE_STEPS = 2
 TIMED_LAUNCHES = 60
+# K3's plain version takes 1–57 ms a call at the timed shapes: fewer
+# calls time it as well.
+K3_PLAIN_LAUNCHES = 10
 # LM phase: batch, prefill length, prefills counted, decode prompt,
 # cache slots and greedy steps.
 LM_BATCH, LM_SEQ, LM_PREFILLS = 8, 2048, 3
-LM_PROMPT, LM_CACHE, LM_GREEDY = 448, 512, 64
+LM_PROMPT, LM_CACHE, LM_GREEDY = 192, 512, 32
 LM_PARAMS = 1_644_883_968
 # Train phase: the driver at full width (clients, global batch, sequence
 # length, warm-up and timed steps, then one profiled step), the flat SGD
@@ -334,6 +364,10 @@ TRAIN_WARMUP, TRAIN_TIMED, TRAIN_LR = 1, 6, 1e-4
 FLAT_STEPS, FLAT_LR = 3, 0.05
 RESUME_LAYERS, RESUME_STEPS, RESUME_HALT = 2, 8, 4
 K2_TRAIN_LAUNCHES = 10
+# Bytes a masked-client check may hold on the card: the first of its two
+# updates stays there if the step's peak and the update fit below this
+# (of 79.6 GB), else it waits on the host.
+KEEP_ON_CARD = 70e9
 # Peak rates of the H100 SXM (NVIDIA data sheet): HBM bytes/s, f32
 # (non-tensor-core) flop/s, dense bf16 and dense TF32 tensor-core flop/s.
 # torch names that card "NVIDIA H100 80GB HBM3".
@@ -406,15 +440,35 @@ def profile(torch, label, unit, fn, n_units, keep=None, top=8, cpu=True):
     return profile_report(torch, label, unit, prof, wall_us, n_units, keep, top)
 
 
+# The device's events in a profiler's Chrome trace: kernels, copies, fills.
+DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_rows(prof):
+    """A finished profiler's device events summed by name: (name, us,
+    count). They are read from the Chrome trace, which the profiler
+    writes in C++; ``key_averages`` would build a Python event for each
+    record first, ~100 s for the ~574k device ops of an xlstm train
+    step."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    sums = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in DEVICE_EVENTS:
+            us, n = sums.get(e["name"], (0.0, 0))
+            sums[e["name"]] = (us + e["dur"], n + 1)
+    return [(name, us, n) for name, (us, n) in sums.items()]
+
+
 def profile_report(torch, label, unit, prof, wall_us, n_units, keep=None,
                    top=8):
     """The lines of :func:`profile` for a finished profiler ``prof`` that
     covered ``wall_us`` of wall time. Returns the kernel rows (name,
     device us, count) and their device us in all."""
-    # Kernel rows only: an operator's row repeats its kernels' time.
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = device_rows(prof)
     busy_us = sum(r[1] for r in rows)
     check(busy_us > 0, f"profile {label}: the profiler saw no device time")
     print(f"profile {label}: wall {wall_us / n_units / 1e3:.2f} ms/{unit}, "
@@ -1410,7 +1464,8 @@ def k3_phase(torch, fa_ops, fa_ref, peaks, sm_clock_hz):
                lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=True, enable_gqa=hkv != h))
         with torch.no_grad():
-            times = [time_ms(torch, fn, flush) for fn in fns]
+            times = [time_ms(torch, fn, flush, n) for fn, n in zip(
+                fns, (TIMED_LAUNCHES, K3_PLAIN_LAUNCHES, TIMED_LAUNCHES))]
         # The work this run's inputs need: the two products and one
         # exponential over the visible (query, key) pairs only, and q, k,
         # v, out moved once.
@@ -1787,11 +1842,11 @@ def lm_phase(torch, rt, fa_ops):
     return launches, params
 
 
-def train_argv(steps, *extra):
-    """The driver's arguments in the train phase: full width, alg1 on
+def train_argv(steps, *extra, arch="stablelm-1.6b", seq=TRAIN_SEQ):
+    """The driver's arguments in the train phases: full width, alg1 on
     periodic arrivals, adamw, every step logged."""
-    return ["--arch", "stablelm-1.6b", "--steps", str(steps),
-            "--global-batch", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+    return ["--arch", arch, "--steps", str(steps),
+            "--global-batch", str(TRAIN_BATCH), "--seq-len", str(seq),
             "--n-clients", str(TRAIN_CLIENTS), "--scheduler", "alg1",
             "--arrivals", "periodic", "--lr", str(TRAIN_LR),
             "--log-every", "1", "--device", DEVICE, *extra]
@@ -1830,86 +1885,69 @@ def train_child(ckdir):
     return 0
 
 
-def train_phase(torch, rt, params, ops, ref, peaks, card):
-    """Energy-weighted LM training at stablelm-1.6b full width through
-    the driver (``repro_torch.launch.train.main``) on the LM phase's
-    weights; a masked client's tokens change nothing; the flat SGD route
-    through K2 against its plain version, and K2 timed at that shape; a
-    2-layer run halted, resumed in a child process, bit for bit."""
-    from repro_torch._tree import tree_leaves
-    from repro_torch.checkpoint import restore_pytree
-    from repro_torch.core.trainer import build_energy_train_step
-    from repro_torch.launch import train as train_mod
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import transformer
+# Leaf names of the weights that enter a product with every token: dense
+# layers ("w"), xLSTM's per-head q/k/v and the sLSTM's recurrent matrix,
+# the MoE experts.
+MATMUL_LEAVES = frozenset(("w", "wq", "wk", "wv", "r", "w_gate", "w_up",
+                           "w_down"))
 
-    phase_t0 = time.perf_counter()
-    k2 = "masked_scaled_aggregate_update"
-    cfg = rt.configs.get_config("stablelm-1.6b")
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    # Model FLOP a step: 2 a multiply-add, forward and backward (x3), over
-    # the matmul weights (q, k, v, o, the gated MLP, the LM head), plus
-    # the two S x S attention products the plain path computes in full.
-    d, hd = cfg.d_model, cfg.n_heads * cfg.resolved_head_dim
-    kvd = cfg.n_kv_heads * cfg.resolved_head_dim
-    matmul_params = (cfg.n_layers * (2 * d * hd + 2 * d * kvd + 3 * d * cfg.d_ff)
-                     + d * cfg.vocab)
-    flops = (6 * matmul_params * tokens
-             + 12 * cfg.n_layers * TRAIN_SEQ * hd * tokens)
-    bound_s = flops / peaks[2]
 
-    # The main path: the driver's own run, one warm-up step, the timed
-    # steps, then one step under the profiler.
-    last = TRAIN_WARMUP + TRAIN_TIMED - 1
-    stamps, active, wsum = [], [], []
-    act = torch.profiler.ProfilerActivity
-    prof = torch.profiler.profile(activities=[act.CPU, act.CUDA])
+def named_leaves(tree, path=()):
+    """``(path, leaf)`` for every leaf of a nested dict of tensors."""
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from named_leaves(sub, path + (key,))
+    else:
+        yield path, tree
 
-    def on_step(step, state, metrics):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        active.append(int(metrics["active_clients"].item()))
-        wsum.append(metrics["weight_sum"].item())
-        if step == last:
-            prof.start()
-        elif step == last + 1:
-            prof.stop()
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    losses = train_mod.main(train_argv(last + 2), params=params,
-                            on_step=on_step)
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    ms = [(stamps[k] - stamps[k - 1]) * 1e3 for k in range(TRAIN_WARMUP, last + 1)]
-    med = sorted(ms)[len(ms) // 2] if len(ms) % 2 else \
-        sum(sorted(ms)[len(ms) // 2 - 1:len(ms) // 2 + 1]) / 2
-    check(all(math.isfinite(x) for x in losses + wsum),
-          f"train: a loss or weight sum is not finite: {losses} {wsum}")
-    check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
-    mfu = flops / (med / 1e3) / peaks[2]
-    print(f"train run: {cfg.name} at full width ({cfg.n_layers} layers, "
-          f"d_model {d}, {cfg.n_heads} heads of {cfg.resolved_head_dim}, "
-          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, bf16, remat "
-          f"{cfg.remat_policy if cfg.remat else 'off'}) through "
-          f"repro_torch.launch.train.main, B={TRAIN_BATCH} x S={TRAIN_SEQ} "
-          f"({tokens:,} tokens a step), {TRAIN_CLIENTS} clients, alg1 on "
-          f"periodic arrivals, adamw {TRAIN_LR}: {TRAIN_WARMUP} warm-up step, "
-          f"{TRAIN_TIMED} timed: median {med:.1f} ms/step (spread "
-          f"{min(ms):.1f}..{max(ms):.1f}), {tokens / med * 1e3:,.0f} tokens/s; "
-          f"model FLOP a step {flops:.4g} ({matmul_params:,} matmul weights), "
-          f"mfu {mfu:.3f} of {peaks[2] / 1e12:.0f} TFLOP/s dense bf16 (that "
-          f"peak's bound: {bound_s * 1e3:.1f} ms/step); peak device memory "
-          f"{peak:.2f} GB [{card}]")
-    print(f"train losses: {[round(x, 4) for x in losses]}; active clients "
-          f"{active}; weight sums {[round(x, 3) for x in wsum]}")
-    wall_us = (stamps[last + 1] - stamps[last]) * 1e6
-    profile_report(torch, "train step", "step", prof, wall_us, 1)
-    del prof
+def train_flop(cfg, params, batch, seq):
+    """Model FLOP of one train step and the matmul weights counted.
 
-    # Scheduler decisions of alg1 on periodic arrivals: the first with
-    # a masked client beside an active one, and FLAT_STEPS with an active
-    # client; batches from the driver's token stream.
-    deterministic(torch, True)
+    2 a multiply-add, forward and backward (x3), over the matmul weights:
+    each reads ``batch x seq`` tokens, or ``batch x enc_len`` frames for
+    the encoder's weights and cross attention's K/V projections; an MoE
+    expert weight counts top_k / n_experts of itself (the experts a token
+    is routed to); a shared segment's weights count once a call site; the
+    embedding only when tied to the head (it is a gather otherwise);
+    depthwise convolutions not at all. Plus every attention layer's two
+    score products in full, as the plain path computes them: self
+    attention seq x seq, cross attention seq x enc_len, the encoder's
+    enc_len x enc_len. The recurrent scans (chunked_gla, the sLSTM's
+    cell) are not counted."""
+    shared = {f"seg{i}": cfg.n_super
+              for i, (_, _, sh) in enumerate(cfg.resolved_superblock) if sh}
+    frames = batch * cfg.enc_len
+    weights, flop = 0, 0
+    for path, leaf in named_leaves(params):
+        if (path[-1] not in MATMUL_LEAVES or leaf.dim() < 2 or "conv" in path
+                or (path[0] == "embed" and not cfg.tie_embeddings)):
+            continue
+        n = leaf.numel() * next((shared[k] for k in path if k in shared), 1)
+        if "moe" in path and path[-1] != "w":
+            n = n * cfg.top_k // cfg.n_experts
+        reads = (frames if path[0] == "encoder"
+                 or ("cross" in path and path[-1] in ("wk", "wv"))
+                 else batch * seq)
+        weights += n
+        flop += 6 * n * reads
+    width = cfg.n_heads * cfg.resolved_head_dim
+    for kind, count, sh in cfg.resolved_superblock:
+        layers = cfg.n_super * (1 if sh else count)
+        if "attn" in kind:
+            flop += 12 * layers * batch * seq * seq * width
+        if kind == "xattn":
+            flop += 12 * layers * batch * seq * cfg.enc_len * width
+    if cfg.enc_dec:
+        flop += 12 * cfg.n_enc_layers * batch * cfg.enc_len ** 2 * width
+    return flop, weights
+
+
+def alg1_decisions(torch, rt, n):
+    """alg1 on periodic arrivals over TRAIN_CLIENTS clients, seed 1: its
+    first decision with a masked client beside an active one, its first
+    ``n`` with an active client, and the key the phases draw batches
+    from."""
     sched, energy = rt.experiments.build_components(
         scheduler="alg1", arrivals="periodic", n_clients=TRAIN_CLIENTS,
         horizon=64)
@@ -1923,60 +1961,103 @@ def train_phase(torch, rt, params, ops, ref, peaks, card):
         estate, arr = energy.arrivals(estate, t, k_arr)
         sstate, dec = sched.step(sstate, t, k_dec, arr)
         n_on = int(dec.mask.sum().item())
-        if n_on and len(decisions) < FLAT_STEPS:
+        if n_on and len(decisions) < n:
             decisions.append((dec.mask, dec.scale))
         if masked is None and 0 < n_on < TRAIN_CLIENTS:
             masked = (dec.mask, dec.scale)
-        if masked is not None and len(decisions) == FLAT_STEPS:
+        if masked is not None and len(decisions) == n:
             break
-    check(masked is not None and len(decisions) == FLAT_STEPS,
+    check(masked is not None and len(decisions) == n,
           "train: alg1 gave no step with a masked and an active client")
-    lm = rt.data.make_lm_tokens(0, 512, TRAIN_SEQ, cfg.vocab)
-    batcher = rt.data.GlobalBatcher({"raw": lm.tokens}, TRAIN_CLIENTS,
-                                    TRAIN_BATCH, device=DEVICE)
+    return masked, decisions, k_draw
 
-    def lm_batch(raw, ids):
-        return {"tokens": raw[:, :-1], "labels": raw[:, 1:], "client_ids": ids}
 
-    mask, scale = masked
-    client = int((mask == 0).nonzero()[0])
-    drawn = batcher.sample(rt.random.fold_in(k_draw, 1000))
-    raw, ids = drawn["raw"], drawn["client_ids"]
+def lm_batch(raw, ids, extra=None):
+    """A driver batch from ``raw`` (B, S + 1) token rows and client ids,
+    with a config's zero side inputs ``extra``."""
+    return {"tokens": raw[:, :-1], "labels": raw[:, 1:], "client_ids": ids,
+            **(extra or {})}
+
+
+def replace_rows(torch, raw, ids, client, vocab):
+    """``raw`` with ``client``'s rows replaced by other random tokens, and
+    the number of rows replaced."""
     other = raw.clone()
     rows = ids == client
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    other[rows] = torch.randint(0, cfg.vocab, other[rows].shape, device=DEVICE,
+    other[rows] = torch.randint(0, vocab, other[rows].shape, device=DEVICE,
                                 dtype=other.dtype, generator=gen)
     check(not torch.equal(other, raw), "train: the replaced tokens are the same")
-    init_state, step = make_train_step(cfg, TRAIN_CLIENTS,
-                                       optimizer=rt.optim.adamw(TRAIN_LR))
-    kept = None
-    t0 = time.perf_counter()
-    for toks in (raw, other):
-        state, metrics = step(init_state(params), lm_batch(toks, ids), mask,
-                              scale)
-        got = (state.params, state.opt_state.mu)
-        del state
-        if kept is None:
-            kept, first_loss = got, metrics["loss"].item()
-    same = all(torch.equal(a, b)
-               for a, b in zip(tree_leaves(kept), tree_leaves(got)))
-    changed_loss = metrics["loss"].item()
-    del kept, got
-    torch.cuda.synchronize()
-    check(same, f"train: client {client} is masked, yet its tokens changed "
-          f"the update")
-    print(f"train masked client: mask {mask.tolist()}, client {client}'s "
-          f"{int(rows.sum())} sequences replaced by other random tokens "
-          f"(mean loss {first_loss:.4f} -> {changed_loss:.4f}): the adamw "
-          f"update (params and first moment) bitwise the same, deterministic "
-          f"algorithms on; 2 steps in {time.perf_counter() - t0:.1f} s")
+    return other, int(rows.sum())
 
-    # The flat SGD route: one K2 launch a step at P = LM_PARAMS, bf16,
-    # against the same steps through K2's plain version.
-    batches = [lm_batch(b["raw"], b["client_ids"])
-               for b in (batcher.sample(rt.random.fold_in(k_draw, 2000 + i))
-                         for i in range(FLAT_STEPS))]
+
+def adamw_update(torch, rt, cfg, params, batch, mask, scale, aux=None):
+    """One ``make_train_step`` adamw step from ``params`` (with ``aux``,
+    ``build_energy_train_step`` at that aux-loss weight): the new params'
+    and first moment's leaves, and the step's mean loss."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core.trainer import build_energy_train_step
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer
+
+    opt = rt.optim.adamw(TRAIN_LR)
+    if aux is None:
+        init_state, step = make_train_step(cfg, TRAIN_CLIENTS, optimizer=opt)
+    else:
+        init_state, step = build_energy_train_step(
+            per_example_loss_fn=lambda p, b: transformer.per_example_loss(
+                p, cfg, b),
+            optimizer=opt, n_clients=TRAIN_CLIENTS, aux_loss_weight=aux)
+    state, metrics = step(init_state(params), batch, mask, scale)
+    leaves = tuple(tree_leaves(t) for t in (state.params, state.opt_state.mu))
+    return leaves, metrics["loss"].item()
+
+
+def two_updates(torch, rt, cfg, params, batch_a, batch_b, mask, scale,
+                aux=None):
+    """:func:`adamw_update` from ``params`` on two batches: the first
+    update stays on the card when it fits beside the step's peak below
+    KEEP_ON_CARD, else it waits on the host. Returns both updates and
+    their mean losses."""
+    torch.cuda.reset_peak_memory_stats()
+    a, loss_a = adamw_update(torch, rt, cfg, params, batch_a, mask, scale, aux)
+    size = sum(x.numel() * x.element_size() for xs in a for x in xs)
+    if torch.cuda.max_memory_allocated() + size > KEEP_ON_CARD:
+        a = tuple([x.cpu() for x in xs] for xs in a)
+    b, loss_b = adamw_update(torch, rt, cfg, params, batch_b, mask, scale, aux)
+    return a, b, loss_a, loss_b
+
+
+def update_moved(a, b):
+    """How far one update (params, first moment) moved from another, on
+    ``b``'s device: for each of the two, the elements that differ and the
+    largest absolute difference among them."""
+    out = []
+    for xs, ys in zip(a, b):
+        check(len(xs) == len(ys), "two updates of different trees")
+        differ, err = 0, 0.0
+        for x, y in zip(xs, ys):
+            x = x.to(y.device)
+            n = int((x != y).sum())
+            if n:
+                differ += n
+                err = max(err, (x.float() - y.float()).abs().max().item())
+        out.append((differ, err))
+    return out
+
+
+def flat_sgd_check(torch, rt, ops, cfg, params, batches, decisions, label,
+                   card):
+    """The flat SGD route of ``build_energy_train_step`` (one K2 launch a
+    step on a one-row bf16 stack of every parameter) for the given
+    steps, against the same steps through K2's plain version: launches
+    counted, every leaf within one bf16 rounding. Returns the launches
+    and the parameters in the stack."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core.trainer import build_energy_train_step
+    from repro_torch.models import transformer
+
+    k2 = "masked_scaled_aggregate_update"
 
     def loss_fn(p, b):
         return transformer.per_example_loss(p, cfg, b)
@@ -1993,14 +2074,14 @@ def train_phase(torch, rt, params, ops, ref, peaks, card):
         for b, (m, sc) in zip(batches, decisions):
             state, metrics = flat_step(state, b, m, sc)
             check(math.isfinite(metrics["loss"].item()),
-                  "train flat sgd: loss not finite")
+                  f"{label} flat sgd: loss not finite")
         torch.cuda.synchronize()
         walls[use_kernel] = time.perf_counter() - t0
         finals[use_kernel] = (state.params, ops.launch_counts[k2])
         del state
-    flat_launches = finals[True][1]
-    check(flat_launches == FLAT_STEPS and finals[False][1] == 0,
-          f"train flat sgd: {flat_launches} K2 launches in {FLAT_STEPS} steps "
+    launches = finals[True][1]
+    check(launches == len(batches) and finals[False][1] == 0,
+          f"{label} flat sgd: {launches} K2 launches in {len(batches)} steps "
           f"(plain route {finals[False][1]})")
     err, differ, n_el = 0.0, 0, 0
     for a, b in zip(tree_leaves(finals[True][0]), tree_leaves(finals[False][0])):
@@ -2009,13 +2090,142 @@ def train_phase(torch, rt, params, ops, ref, peaks, card):
         differ += int((a != b).sum().item())
         n_el += a.numel()
     del finals
-    print(f"train flat sgd: build_energy_train_step(flat=True, use_kernel=True)"
-          f", sgd({FLAT_LR}), {FLAT_STEPS} steps at P = {n_el:,} bf16: "
-          f"{flat_launches} K2 launches ({walls[True]:.2f} s); against K2's "
-          f"plain version ({walls[False]:.2f} s) max abs diff {err:.3g}, "
-          f"{differ} of {n_el:,} params differ (gate: one bf16 rounding "
-          f"step) [{card}]")
+    print(f"{label} flat sgd: {cfg.name}, build_energy_train_step(flat=True, "
+          f"use_kernel=True), sgd({FLAT_LR}), {len(batches)} step(s) at P = "
+          f"{n_el:,} bf16: {launches} K2 launches ({walls[True]:.2f} s); "
+          f"against K2's plain version ({walls[False]:.2f} s) max abs diff "
+          f"{err:.3g}, {differ} of {n_el:,} params differ (gate: one bf16 "
+          f"rounding step) [{card}]")
     torch.cuda.empty_cache()
+    return launches, n_el
+
+
+def driver_run(torch, argv, cfg, params, timed, label, on_step=None,
+               cpu=True, side_inputs=None):
+    """The driver's own run (``repro_torch.launch.train.main`` on
+    ``argv(steps)``, ``cfg`` and ``params``): TRAIN_WARMUP warm-up steps,
+    then ``timed`` timed steps, the last of them under ``torch.profiler``
+    (the device alone unless ``cpu``; started before that step's clock
+    starts, stopped after it ends), each step synchronised and stamped
+    and passed on to ``on_step``. Holds the losses and weight sums finite
+    and the last loss below the first. Returns the losses, the timed
+    steps' ms and their median, the peak device memory in GB (reset
+    before the run), the active clients and weight sums, the profiler
+    and the profiled step's wall us. ``side_inputs`` replaces the
+    driver's zero vision tokens or audio frames."""
+    from repro_torch.launch import train as train_mod
+
+    last = TRAIN_WARMUP + timed - 1
+    stamps, active, wsum = [], [], []
+    act = torch.profiler.ProfilerActivity
+    prof = torch.profiler.profile(
+        activities=[act.CPU, act.CUDA] if cpu else [act.CUDA])
+
+    def stamp(step, state, metrics):
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        if step == last:
+            prof.stop()
+        active.append(int(metrics["active_clients"].item()))
+        wsum.append(metrics["weight_sum"].item())
+        if on_step is not None:
+            on_step(step, state, metrics)
+        if step == last - 1:
+            prof.start()
+        # A step's clock runs from the end of the bookkeeping above for
+        # the step before it to the synchronise after it.
+        stamps.append((end, time.perf_counter()))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses = train_mod.main(argv(last + 1), cfg=cfg, params=params,
+                            on_step=stamp, side_inputs=(
+                                side_inputs or train_mod.zero_side_inputs))
+    del params
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = sorted((stamps[k][0] - stamps[k - 1][1]) * 1e3
+                for k in range(TRAIN_WARMUP, last + 1))
+    med = (ms[len(ms) // 2] if len(ms) % 2
+           else sum(ms[len(ms) // 2 - 1:len(ms) // 2 + 1]) / 2)
+    check(all(math.isfinite(x) for x in losses + wsum),
+          f"{label}: a loss or weight sum is not finite: {losses} {wsum}")
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall: {losses}")
+    return {"losses": losses, "ms": ms, "med": med, "peak": peak,
+            "active": active, "wsum": wsum, "prof": prof,
+            "wall_us": (stamps[last][0] - stamps[last - 1][1]) * 1e6}
+
+
+def train_phase(torch, rt, params, ops, ref, peaks, card):
+    """Energy-weighted LM training at stablelm-1.6b full width through
+    the driver (``repro_torch.launch.train.main``) on the LM phase's
+    weights; a masked client's tokens change nothing; the flat SGD route
+    through K2 against its plain version, and K2 timed at that shape; a
+    2-layer run halted, resumed in a child process, bit for bit."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.checkpoint import restore_pytree
+    from repro_torch.launch import train as train_mod
+
+    phase_t0 = time.perf_counter()
+    cfg = rt.configs.get_config("stablelm-1.6b")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    d = cfg.d_model
+    flops, matmul_params = train_flop(cfg, params, TRAIN_BATCH, TRAIN_SEQ)
+    bound_s = flops / peaks[2]
+
+    # The main path: the driver's own run.
+    run = driver_run(torch, train_argv, cfg, params, TRAIN_TIMED, "train")
+    losses, ms, med, peak = run["losses"], run["ms"], run["med"], run["peak"]
+    mfu = flops / (med / 1e3) / peaks[2]
+    print(f"train run: {cfg.name} at full width ({cfg.n_layers} layers, "
+          f"d_model {d}, {cfg.n_heads} heads of {cfg.resolved_head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, bf16, remat "
+          f"{cfg.remat_policy if cfg.remat else 'off'}) through "
+          f"repro_torch.launch.train.main, B={TRAIN_BATCH} x S={TRAIN_SEQ} "
+          f"({tokens:,} tokens a step), {TRAIN_CLIENTS} clients, alg1 on "
+          f"periodic arrivals, adamw {TRAIN_LR}: {TRAIN_WARMUP} warm-up step, "
+          f"{TRAIN_TIMED} timed: median {med:.1f} ms/step (spread "
+          f"{min(ms):.1f}..{max(ms):.1f}), {tokens / med * 1e3:,.0f} tokens/s; "
+          f"model FLOP a step {flops:.4g} ({matmul_params:,} matmul weights), "
+          f"mfu {mfu:.3f} of {peaks[2] / 1e12:.0f} TFLOP/s dense bf16 (that "
+          f"peak's bound: {bound_s * 1e3:.1f} ms/step); peak device memory "
+          f"{peak:.2f} GB [{card}]")
+    print(f"train losses: {[round(x, 4) for x in losses]}; active clients "
+          f"{run['active']}; weight sums {[round(x, 3) for x in run['wsum']]}")
+    profile_report(torch, "train step", "step", run["prof"], run["wall_us"], 1)
+    del run
+
+    # Scheduler decisions of alg1 on periodic arrivals; batches from the
+    # driver's token stream.
+    deterministic(torch, True)
+    (mask, scale), decisions, k_draw = alg1_decisions(torch, rt, FLAT_STEPS)
+    lm = rt.data.make_lm_tokens(0, 512, TRAIN_SEQ, cfg.vocab)
+    batcher = rt.data.GlobalBatcher({"raw": lm.tokens}, TRAIN_CLIENTS,
+                                    TRAIN_BATCH, device=DEVICE)
+    client = int((mask == 0).nonzero()[0])
+    drawn = batcher.sample(rt.random.fold_in(k_draw, 1000))
+    raw, ids = drawn["raw"], drawn["client_ids"]
+    other, n_rows = replace_rows(torch, raw, ids, client, cfg.vocab)
+    t0 = time.perf_counter()
+    kept, got, first_loss, changed_loss = two_updates(
+        torch, rt, cfg, params, lm_batch(raw, ids), lm_batch(other, ids), mask,
+        scale)
+    moved = update_moved(kept, got)
+    del kept, got
+    check(moved[0][0] == moved[1][0] == 0, f"train: client {client} is masked, yet its tokens changed "
+          f"the update")
+    print(f"train masked client: mask {mask.tolist()}, client {client}'s "
+          f"{n_rows} sequences replaced by other random tokens "
+          f"(mean loss {first_loss:.4f} -> {changed_loss:.4f}): the adamw "
+          f"update (params and first moment) bitwise the same, deterministic "
+          f"algorithms on; 2 steps in {time.perf_counter() - t0:.1f} s")
+
+    # The flat SGD route: one K2 launch a step at P = LM_PARAMS, bf16,
+    # against the same steps through K2's plain version.
+    batches = [lm_batch(b["raw"], b["client_ids"])
+               for b in (batcher.sample(rt.random.fold_in(k_draw, 2000 + i))
+                         for i in range(FLAT_STEPS))]
+    flat_launches, n_el = flat_sgd_check(torch, rt, ops, cfg, params, batches,
+                                         decisions, "train", card)
 
     # K2 alone at the route's shape: a one-row (1, P) bf16 stack.
     gen = torch.Generator(device=DEVICE).manual_seed(1)
@@ -2119,7 +2329,7 @@ REC_MODELS = (
 )
 # Timed prefills after the counted one, decode prompt, cache slots and
 # greedy steps.
-REC_TIMED, REC_PROMPT, REC_CACHE, REC_GREEDY = 1, 128, 256, 32
+REC_TIMED, REC_PROMPT, REC_CACHE, REC_GREEDY = 1, 64, 256, 16
 # The kernel route in f32 against the f32 reference: K4's 3xTF32 products
 # (about 2**-20 each) and K3's f32 path sum in other orders than
 # chunked_gla and the plain attention, through 48-54 layers (the "rec f32
@@ -2144,7 +2354,7 @@ def recurrent_model(torch, rt, fa_ops, ssm_ops, card, name, n_k4, n_k3,
     and greedy decode, the profile. Returns the counted launches."""
     from repro_torch._tree import tree_map
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
-    from repro_torch.models import transformer
+    from repro_torch.models import ssm, transformer
 
     cfg = rt.configs.get_config(name).replace(use_flash=True)
     plain_cfg = cfg.replace(use_flash=False)
@@ -2285,6 +2495,7 @@ def recurrent_model(torch, rt, fa_ops, ssm_ops, card, name, n_k4, n_k3,
           f"time; peak device memory {peak:.2f} GB; {time.perf_counter() - t0_model:.1f} s "
           f"[{card}]")
     del params, states
+    ssm.release_slstm_graphs()
     torch.cuda.empty_cache()
     return launches
 
@@ -2952,6 +3163,263 @@ def mm_phase(torch, rt, fa_ops, card):
     return counts
 
 
+# Zoo train phase: five more families trained through the driver at full
+# width, random bf16 weights from seed 0: name, layers (0: all), sequence
+# length, timed steps and parameters. whisper trains on its decoder's
+# context of 448 tokens [arXiv:2212.04356] beside 1,500 zero frames.
+# The timed steps are cut to fit the script's time limit: zamba2's and
+# xlstm's steps take ~4–6 s. phi3.5-moe keeps 1 of its 32 layers:
+# an adamw step holds about 28 bytes a parameter at once (the old state's
+# bf16 params and f32 moments, the bf16 gradients and their f32 copy, the
+# new moments, the update and the new params), 80.2 GB at 2 layers, 43.8
+# GB at 1.
+ZOO_TRAIN = (
+    ("whisper-tiny", 0, 448, TRAIN_TIMED, 56_398_080),
+    ("qwen2-vl-2b", 0, TRAIN_SEQ, 3, 1_777_675_776),
+    ("zamba2-2.7b", 0, TRAIN_SEQ, 2, 2_063_676_080),
+    ("xlstm-1.3b", 0, TRAIN_SEQ, 2, 2_012_002_640),
+    ("phi3.5-moe-42b-a6.6b", 1, TRAIN_SEQ, TRAIN_TIMED, 1_562_980_352),
+)
+# The config whose flat SGD route runs through K2 in this phase, and its
+# steps (a step of each route takes ~6 s at zamba2's size).
+ZOO_TRAIN_FLAT, ZOO_FLAT_STEPS = "zamba2-2.7b", 1
+# Step 0's batch loss in bf16 against the same weights upcast to f32,
+# relative: a side input or a recurrent state that trains on the wrong
+# tensor moves it by far more than bf16's rounding.
+ZOO_TRAIN_BF16_TOL = 1e-2
+
+
+def patch_inputs(cfg, batch_size, device):
+    """Synthetic patch embeddings for a vision config's batches, the same
+    every step: normal at the token embedding's scale (d_model**-0.5), as
+    the mm phase serves qwen2-vl. The driver's own zero vision tokens
+    (the JAX driver's) keep those rows exactly 0 through every layer of a
+    random model, whose biases start at 0, and each RMSNorm multiplies
+    their gradient by rsqrt(eps) = 1,000: at qwen2-vl-2b's width it grows
+    ~1,000-fold a layer and overflows f32 before layer 28, in both
+    packages (ROADMAP R5)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    return {"vision_embeds": (torch.randn(
+        (batch_size, cfg.n_vision_tokens, cfg.d_model), device=device,
+        generator=gen) * cfg.d_model ** -0.5).to(cfg.dtype)}
+RECURRENT_KINDS = ("mamba2", "mlstm", "slstm")
+
+
+def driver_batch(rt, cfg, seq):
+    """The driver's step-0 token rows and client ids at ``--seed 0``: its
+    key schedule (the last of five keys, then the second of three) and
+    its batcher over ``make_lm_tokens``."""
+    *_, k_batch = rt.random.split(rt.random.PRNGKey(0, device=DEVICE), 5)
+    _, kb, _ = rt.random.split(k_batch, 3)
+    lm = rt.data.make_lm_tokens(0, 512, seq, cfg.vocab)
+    drawn = rt.data.GlobalBatcher({"raw": lm.tokens}, TRAIN_CLIENTS,
+                                  TRAIN_BATCH, device=DEVICE).sample(kb)
+    return drawn["raw"], drawn["client_ids"]
+
+
+def zoo_train_model(torch, rt, ops, peaks, card, masked, decisions, k_draw,
+                    name, n_layers, seq, timed, n_params):
+    """One config trained at full width (``n_layers`` of its layers, or
+    all): the driver's run timed and profiled; step 0's loss in bf16
+    against f32; a masked client's tokens leave the adamw update bitwise
+    the same (an MoE config at a capacity where nothing drops; at its own
+    capacity the move is printed); for ZOO_TRAIN_FLAT the flat SGD route
+    through K2. Returns that route's K2 launches, or None."""
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import moe, ssm, transformer
+
+    t0_model = time.perf_counter()
+    full = rt.configs.get_config(name)
+    cfg = full.replace(n_layers=n_layers) if n_layers else full
+    is_moe = cfg.n_experts > 0
+    scans = any(k in RECURRENT_KINDS for k, _, _ in cfg.resolved_superblock)
+
+    def init():
+        return transformer.init_lm(rt.random.PRNGKey(0, device=DEVICE), cfg)
+
+    # The driver holds the only reference to its weights: they go when
+    # its first step replaces them.
+    box = [init()]
+    count = rt.models.count_params(box[0])
+    check(count == n_params, f"{name} has {count} parameters, not {n_params}")
+    flops, weights = train_flop(cfg, box[0], TRAIN_BATCH, seq)
+    drops = []
+
+    def count_drops(step, state, metrics):
+        drops.append(moe.dropped_share())
+        moe.reset_dispatch_counts()
+
+    side = (patch_inputs if cfg.n_vision_tokens
+            else train_mod.zero_side_inputs)
+    moe.reset_dispatch_counts()
+    run = driver_run(
+        torch, lambda steps: train_argv(steps, arch=name, seq=seq), cfg,
+        box.pop(), timed, f"zoo train {name}",
+        on_step=count_drops if is_moe else None, cpu=False, side_inputs=side)
+    losses, ms, med = run["losses"], run["ms"], run["med"]
+    tokens = TRAIN_BATCH * seq
+    mfu = flops / (med / 1e3) / peaks[2]
+    with_side = (f" + {cfg.n_vision_tokens} synthetic patch embeddings a row"
+                 if cfg.n_vision_tokens else
+                 f" + {cfg.enc_len} zero frames a row" if cfg.enc_dec else "")
+    depth = (f"{cfg.n_layers} of {full.n_layers} layers (cut: one card does "
+             f"not hold more)" if n_layers else
+             f"all {cfg.total_layers + cfg.n_enc_layers} layers")
+    moe_text = (f", {cfg.n_experts} experts top-{cfg.top_k} at capacity "
+                f"factor {cfg.moe_capacity_factor}" if is_moe else "")
+    print(f"zoo train run: {name} at full width, {depth} (d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}{moe_text}, bf16, remat "
+          f"{cfg.remat_policy if cfg.remat else 'off'}), {count:,} parameters,"
+          f" through repro_torch.launch.train.main, B={TRAIN_BATCH} x S={seq}"
+          f"{with_side} ({tokens:,} tokens a step), {TRAIN_CLIENTS} clients, alg1 "
+          f"on periodic arrivals, adamw {TRAIN_LR}: {TRAIN_WARMUP} warm-up "
+          f"step, {timed} timed: median {med:.1f} ms/step (spread "
+          f"{min(ms):.1f}..{max(ms):.1f}), {tokens / med * 1e3:,.0f} tokens/s; "
+          f"model FLOP a step {flops:.4g} ({weights:,} matmul weights"
+          f"{'; the scans not counted' if scans else ''}), mfu {mfu:.3f} of "
+          f"{peaks[2] / 1e12:.0f} TFLOP/s dense bf16; peak device memory "
+          f"{run['peak']:.2f} GB [{card}]")
+    print(f"zoo train losses {name}: {[round(x, 4) for x in losses]}; active "
+          f"clients {run['active']}; weight sums "
+          f"{[round(x, 3) for x in run['wsum']]}"
+          + (f"; dropped share of (token, k) assignments a step "
+             f"{[round(x, 4) for x in drops]}" if is_moe else ""))
+    profile_report(torch, f"zoo train {name}", "step", run["prof"],
+                   run["wall_us"], 1)
+    del run
+    torch.cuda.empty_cache()
+
+    # bf16 against f32: step 0's batch loss at the driver's first weights.
+    params = init()
+    raw, ids = driver_batch(rt, cfg, seq)
+    cfg32 = cfg.replace(dtype_name="float32")
+    with torch.no_grad():
+        l16 = transformer.per_example_loss(params, cfg, lm_batch(
+            raw, ids, side(cfg, TRAIN_BATCH, DEVICE)))[0].mean().item()
+        params32 = tree_map(lambda x: x.float(), params)
+        l32 = transformer.per_example_loss(params32, cfg32, lm_batch(
+            raw, ids, side(cfg32, TRAIN_BATCH, DEVICE)))[0].mean().item()
+        del params32
+    torch.cuda.empty_cache()
+    gap = abs(l16 - l32) / abs(l32)
+    check(abs(l16 - losses[0]) <= 1e-4 * abs(losses[0]),
+          f"zoo train {name}: step 0's batch rebuilt gives loss {l16}, the "
+          f"driver's step 0 {losses[0]}")
+    check(gap <= ZOO_TRAIN_BF16_TOL, f"zoo train {name}: bf16 loss {l16} "
+          f"from the f32 loss {l32} by {gap:.3g} relative")
+    print(f"zoo train bf16 {name}: step 0's batch loss in bf16 {l16:.6f} "
+          f"(the driver's {losses[0]:.6f}), upcast to f32 {l32:.6f}: "
+          f"{gap:.3g} relative (<= {ZOO_TRAIN_BF16_TOL}) [{card}]")
+
+    # A masked client's tokens change nothing, deterministic algorithms
+    # on: the adamw update bitwise the same. An MoE config's tokens are
+    # coupled across clients, as in the JAX package: the dispatch's
+    # capacity is counted over the whole batch (a masked client's tokens
+    # can change which others drop), the load-balance aux loss averages
+    # the router over every token, and a token routed elsewhere moves
+    # every later token's slot in the expert buffers, so the experts'
+    # weight gradients sum in another order. So the client is the last
+    # masked one, whose rows end the batch, and its update is held
+    # bitwise at E / top_k, where every expert's capacity holds every
+    # token, with the aux loss off; the move at the config's capacity and
+    # at E / top_k with the aux loss is printed beside it.
+    deterministic(torch, True)
+    mask, scale = masked
+    client = int((mask == 0).nonzero()[-1])
+    other, n_rows = replace_rows(torch, raw, ids, client, cfg.vocab)
+    check(not is_moe or bool((ids[-n_rows:] == client).all()),
+          f"zoo train {name}: masked client {client}'s rows do not end the "
+          f"batch")
+    extra = side(cfg, TRAIN_BATCH, DEVICE)
+    cases = [(cfg, None, True)]
+    if is_moe:
+        no_drop = cfg.replace(moe_capacity_factor=cfg.n_experts / cfg.top_k)
+        cases = [(cfg, None, False), (no_drop, None, False),
+                 (no_drop, 0.0, True)]
+    for c, aux, held in cases:
+        t0 = time.perf_counter()
+        moe.reset_dispatch_counts()
+        kept, got, loss_a, loss_b = two_updates(
+            torch, rt, c, params, lm_batch(raw, ids, extra),
+            lm_batch(other, ids, extra), mask, scale, aux)
+        dropped = moe.dropped_share()
+        (p_differ, p_err), (m_differ, m_err) = update_moved(kept, got)
+        n_el = sum(x.numel() for x in kept[0])
+        top = max(x.abs().max().item() for x in got[1])
+        del kept, got
+        if held:
+            check(dropped == 0.0, f"zoo train {name}: {dropped} of the "
+                  f"assignments dropped at capacity factor "
+                  f"{c.moe_capacity_factor}")
+            check(p_differ == m_differ == 0, f"zoo train {name}: client "
+                  f"{client} is masked, yet its tokens changed the update "
+                  f"({p_differ} params, max {p_err:.3g}; {m_differ} first "
+                  f"moment elements, max {m_err:.3g})")
+        moved = ("the adamw update (params and first moment) bitwise the same"
+                 if held else
+                 f"the adamw update's params: {p_differ:,} of {n_el:,} moved, "
+                 f"by at most {p_err:.3g}; its first moment: {m_differ:,} "
+                 f"moved, by at most {m_err:.3g} = {m_err / top:.3g} of its "
+                 f"largest value")
+        if is_moe:
+            moved += (f"; capacity factor {c.moe_capacity_factor}, dropped "
+                      f"share {dropped:.4f}, aux-loss weight "
+                      f"{0.01 if aux is None else aux}")
+        print(f"zoo train masked client {name}: mask {mask.tolist()}, client "
+              f"{client}'s {n_rows} sequences replaced by other random tokens "
+              f"(mean loss {loss_a:.4f} -> {loss_b:.4f}): {moved}; "
+              f"deterministic algorithms on; 2 steps in "
+              f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+    launches = None
+    if name == ZOO_TRAIN_FLAT:
+        # The flat route ravels every leaf into one buffer of one dtype,
+        # in both packages (ravel_spec refuses a mixed tree); zamba2 keeps
+        # its SSM's a_log, dt_bias and d_skip in f32, so they go in bf16.
+        cast = sum(x.numel() for x in tree_leaves(params)
+                   if x.dtype != cfg.dtype)
+        params = tree_map(lambda x: x.to(cfg.dtype), params)
+        print(f"zoo train flat sgd: {name}'s {cast:,} parameters outside "
+              f"{cfg.dtype} cast to it for the one-dtype flat buffer")
+        lm = rt.data.make_lm_tokens(0, 512, seq, cfg.vocab)
+        batcher = rt.data.GlobalBatcher({"raw": lm.tokens}, TRAIN_CLIENTS,
+                                        TRAIN_BATCH, device=DEVICE)
+        batches = [lm_batch(b["raw"], b["client_ids"], extra)
+                   for b in (batcher.sample(rt.random.fold_in(k_draw, 2000 + i))
+                             for i in range(ZOO_FLAT_STEPS))]
+        launches, _ = flat_sgd_check(torch, rt, ops, cfg, params, batches,
+                                     decisions, "zoo train", card)
+    deterministic(torch, False)
+    del params
+    ssm.release_slstm_graphs()
+    torch.cuda.empty_cache()
+    print(f"zoo train phase {name}: took {time.perf_counter() - t0_model:.1f} "
+          f"s, peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB [{card}]")
+    return launches
+
+
+def zoo_train_phase(torch, rt, ops, peaks, card):
+    """whisper-tiny, qwen2-vl-2b, zamba2-2.7b, xlstm-1.3b and phi3.5-moe
+    trained through the driver at full width, one after another, each
+    freed before the next. Returns the K2 launches of the flat SGD
+    route, under its config's name."""
+    phase_t0 = time.perf_counter()
+    masked, decisions, k_draw = alg1_decisions(torch, rt, ZOO_FLAT_STEPS)
+    counts = {}
+    for name, *rest in ZOO_TRAIN:
+        launches = zoo_train_model(torch, rt, ops, peaks, card, masked,
+                                   decisions, k_draw, name, *rest)
+        if launches is not None:
+            counts[name] = launches
+    print(f"zoo train phase: took {time.perf_counter() - phase_t0:.1f} s "
+          f"[{card}]")
+    return counts
+
+
 def load_port():
     """Import the port from ``./src``."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -3013,32 +3481,51 @@ def main():
           f"{peaks[1] / 1e12:.0f} TFLOP/s f32, {peaks[2] / 1e12:.0f} TFLOP/s "
           f"bf16, {peaks[3] / 1e12:.0f} TFLOP/s TF32")
 
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        for f in [pool.submit(m.load) for m in (ops, fa_ops, ssm_ops)]:
-            f.result()
+    seconds = {}
+
+    def phase(name, fn, *args):
+        """``fn(*args)``, its wall seconds kept under ``name``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    def build():
+        with ThreadPoolExecutor(max_workers=3) as pool:
+            for f in [pool.submit(m.load) for m in (ops, fa_ops, ssm_ops)]:
+                f.result()
+
+    phase("build", build)
     print(f"build: aggregate, flash-attention and scan kernels in "
-          f"{time.perf_counter() - t0:.1f} s (one nvcc process for each "
-          f"source, all at once)")
+          f"{seconds['build']:.1f} s (one nvcc process for each source, all "
+          f"at once)")
     k3_build_report(_build, fa_ops)
     k4_build_report(torch, _build, ssm_ops)
 
-    errs, timing = kernel_phase(torch, ops, ref, peaks)
-    launches, fig1_data = fig1_phase(torch, rt)
-    engine_counts = engine_phase(torch, rt, fig1_data)
-    fault_counts = faults_phase(torch, rt, fig1_data, card)
-    serve_counts = serve_phase(torch, rt, fig1_data, card)
+    errs, timing = phase("kernel", kernel_phase, torch, ops, ref, peaks)
+    launches, fig1_data = phase("fig1", fig1_phase, torch, rt)
+    engine_counts = phase("engine", engine_phase, torch, rt, fig1_data)
+    fault_counts = phase("faults", faults_phase, torch, rt, fig1_data, card)
+    serve_counts = phase("serve", serve_phase, torch, rt, fig1_data, card)
     del fig1_data
-    k3_err, k3_timing = k3_phase(torch, fa_ops, fa_ref, peaks, sm_clock_hz)
-    launches["gla_scan"], k4_err, k4_timing = k4_phase(
-        torch, ssm_ops, ssm_ref, chunked_gla, peaks)
-    launches["flash_attention"], lm_params = lm_phase(torch, rt, fa_ops)
-    train_counts, k2_train = train_phase(torch, rt, lm_params, ops, ref,
-                                         peaks, card)
+    k3_err, k3_timing = phase("k3", k3_phase, torch, fa_ops, fa_ref, peaks,
+                              sm_clock_hz)
+    launches["gla_scan"], k4_err, k4_timing = phase(
+        "k4", k4_phase, torch, ssm_ops, ssm_ref, chunked_gla, peaks)
+    launches["flash_attention"], lm_params = phase("lm", lm_phase, torch, rt,
+                                                   fa_ops)
+    train_counts, k2_train = phase("train", train_phase, torch, rt, lm_params,
+                                   ops, ref, peaks, card)
     del lm_params
-    rec_counts = recurrent_phase(torch, rt, fa_ops, ssm_ops, card)
-    zoo_counts = zoo_phase(torch, rt, fa_ops, card)
-    mm_counts = mm_phase(torch, rt, fa_ops, card)
+    rec_counts = phase("rec", recurrent_phase, torch, rt, fa_ops, ssm_ops,
+                       card)
+    zoo_counts = phase("zoo", zoo_phase, torch, rt, fa_ops, card)
+    mm_counts = phase("mm", mm_phase, torch, rt, fa_ops, card)
+    train_counts.update(phase("zoo train", zoo_train_phase, torch, rt, ops,
+                              peaks, card))
+    print(f"phase seconds: {json.dumps(seconds)}; {sum(seconds.values()):.1f} "
+          f"s in all, {time.perf_counter() - T0:.1f} s since the script "
+          f"started [{card}]")
 
     names = {"k1": ("masked_scaled_aggregate", SOURCE,
                     "src/repro/kernels/aggregate/aggregate.py:77"),
@@ -3070,8 +3557,9 @@ def main():
             kernels[-1]["serve_launches"] = {
                 label: c[name] for label, c in serve_counts.items()}
         if key == "k2":
-            # The train phase's flat SGD route: one launch a step on a
-            # one-row stack of the LM's P parameters, timed at that shape.
+            # The train phases' flat SGD route: one launch a step on a
+            # one-row stack of a model's P parameters (stablelm's under
+            # "flat_sgd", zamba2's under its name), timed at stablelm's.
             kernels[-1]["train_launches"] = train_counts
             kernels[-1]["train_shape"] = k2_train
         if key == "k3":

@@ -48,7 +48,27 @@ def default_scheduler_for(arrivals: str, requested: str) -> str:
     return "alg1" if arrivals == "periodic" else "alg2"
 
 
-def main(argv=None, *, cfg=None, params=None, on_step=None):
+def zero_side_inputs(cfg, batch_size: int, device) -> dict:
+    """The all-zero vision tokens / audio frames a batch of ``cfg`` carries.
+
+    A vision config's first ``n_vision_tokens`` positions and an
+    encoder-decoder's memory come from these, as in the JAX driver: the
+    synthetic token stream has no image or audio of its own.
+    """
+    out = {}
+    if cfg.n_vision_tokens:
+        out["vision_embeds"] = torch.zeros(
+            (batch_size, cfg.n_vision_tokens, cfg.d_model), dtype=cfg.dtype,
+            device=device)
+    if cfg.enc_dec:
+        out["audio_feats"] = torch.zeros(
+            (batch_size, cfg.enc_len, cfg.d_model), dtype=cfg.dtype,
+            device=device)
+    return out
+
+
+def main(argv=None, *, cfg=None, params=None, on_step=None,
+         side_inputs=zero_side_inputs):
     """Run the driver on ``argv`` and return the per-step losses.
 
     ``cfg`` trains that :class:`~repro_torch.configs.base.ArchConfig` in
@@ -56,7 +76,9 @@ def main(argv=None, *, cfg=None, params=None, on_step=None):
     presets). ``params`` starts from that parameter tree instead of one
     drawn from ``--seed`` (the rest of the run still draws from it).
     ``on_step(step, state, metrics)`` is called after each step, once its
-    loss has been read back from the device.
+    loss has been read back from the device. ``side_inputs(cfg,
+    batch_size, device)`` gives every batch's vision tokens or audio
+    frames: by default :func:`zero_side_inputs`, the JAX driver's zeros.
     """
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=cfg is None)
@@ -171,6 +193,7 @@ def main(argv=None, *, cfg=None, params=None, on_step=None):
             "labels": batch_raw["raw"][:, 1:],
             "client_ids": batch_raw["client_ids"],
         }
+        batch.update(side_inputs(cfg, args.global_batch, device))
         t = torch.full((), step, dtype=torch.int32, device=device)
         sched_state, energy_state, mask, scale = sched_step(
             sched_state, energy_state, t, ks)

@@ -21,13 +21,23 @@ the decay-weighted scores is dropped by a select, as the TPU kernel
 does. The JAX ``chunked_gla`` multiplies by a 0/1 mask instead, and the
 ``exp(la_t − la_s)`` of that triangle overflows to inf for small decays
 (a ≈ 1e-6), so ``inf · 0`` gives NaN there (ROADMAP, caveat R4); the
-JAX Mamba2 and mLSTM blocks inherit it, the port's do not.
+JAX Mamba2 and mLSTM blocks inherit it, the port's do not. The port
+selects the exponent as well, so the triangle's exp is 0, not inf, and
+the gradient stays finite where a select of the product alone would
+give ``0 · inf`` in the backward.
 
 sLSTM has a hidden-to-hidden recurrent matrix, so it runs as a Python
 loop over time with an f32 carry, where the JAX package runs
 ``lax.scan``; its input projection is one product over the whole
-sequence before the loop. The decode steps write the blocks' states in
-place (``copy_``), as the attention decode writes its cache.
+sequence before the loop. Where gradients are wanted the loop is one
+autograd node (:class:`_SLSTMScan`) whose backward walks time in reverse
+by hand: autograd would record a dozen nodes a step and run each of
+them in its engine. On the card each loop (the forward, with or without
+what the backward keeps, and the backward) runs as a CUDA graph,
+captured at its first call with a shape: the host launched every step's
+dozen small kernels one by one, and that, not the card, bounded an
+xlstm prefill and train step. The decode steps write the blocks' states
+in place (``copy_``), as the attention decode writes its cache.
 """
 
 from __future__ import annotations
@@ -66,13 +76,18 @@ def chunked_gla(a, k, v, q, h0=None, chunk: int = 64):
     hstate = (torch.zeros(b, h, dk, dv, dtype=torch.float32, device=a.device)
               if h0 is None else h0.to(torch.float32))
     ys = []
-    for i in range(nc):
-        la_i, k_i, v_i, q_i = la[:, i], k_c[:, i], v_c[:, i], q_c[:, i]
+    # One unbind a tensor, not a slice a chunk: a slice's backward builds
+    # a full-size zero gradient and adds it in, an unbind's stacks them.
+    for la_i, k_i, v_i, q_i in zip(*(x.unbind(1) for x in (la, k_c, v_c, q_c))):
         # inter-chunk: y += decay(start→t) · qᵀ H_prev
         y_inter = torch.einsum("bthd,bhdv->bthv",
                                q_i * torch.exp(la_i)[..., None], hstate)
-        # intra-chunk, causal by select (quadratic in `chunk` only)
-        ratio = torch.exp(la_i[:, :, None, :] - la_i[:, None, :, :])  # (B,t,s,H)
+        # intra-chunk, causal by select (quadratic in `chunk` only). The
+        # exponent is selected too: exp of the upper triangle's la_t − la_s
+        # overflows for small decays, and the select's backward would
+        # multiply its zero gradient by that inf.
+        ratio = torch.exp(torch.where(
+            tri, la_i[:, :, None, :] - la_i[:, None, :, :], -torch.inf))  # (B,t,s,H)
         scores = torch.einsum("bthd,bshd->btsh", q_i, k_i)
         scores = torch.where(tri, scores * ratio, 0.0)
         y_intra = torch.einsum("btsh,bshv->bthv", scores, v_i)
@@ -326,7 +341,13 @@ def slstm_cell(pre, r, state):
     """One step. pre: (B, H, 4·dh), the input projection of this step in
     the input's dtype; r: (H, dh, 4·dh) f32; state: dict of (B, H, dh) f32
     tensors c, n, h. Returns the new state; its h is the step's output in
-    f32 (the caller casts it to the input's dtype).
+    f32 (the caller casts it to the input's dtype)."""
+    return _slstm_step(pre, r, state)[0]
+
+
+def _slstm_step(pre, r, state):
+    """:func:`slstm_cell`, and the step's gates: the sigmoid over the four
+    gate blocks (B, H, 4, dh) and z's tanh (B, H, dh).
 
     The gates are the JAX package's, at its rounding points: i, f, o one
     sigmoid over the four gate blocks after f's +1 (z's sigmoid is
@@ -340,7 +361,134 @@ def slstm_cell(pre, r, state):
     c = f_g * state["c"] + i_g * z_g
     n = f_g * state["n"] + i_g
     h = o_g * c / torch.clamp(n, min=1.0)      # f32 carry
-    return {"c": c, "n": n, "h": h}
+    return {"c": c, "n": n, "h": h}, (sig, z_g)
+
+
+def _scan_forward(pre, r, keep):
+    """The sLSTM loop over time from a zero state: ``pre`` (B, S, H, 4·dh)
+    in the input's dtype and ``r`` (H, dh, 4·dh) f32 to every step's h,
+    (B, S, H, dh) f32, written into one buffer as the loop goes; with
+    ``keep`` also the gates (B, S, H, 4, dh), z, c and n of every step,
+    which the backward reads."""
+    b, s, n_heads, e = pre.shape
+    f32 = dict(dtype=torch.float32, device=pre.device)
+    shape = (b, s, n_heads, e // 4)
+    out = [torch.empty(shape, **f32)]
+    if keep:
+        out += [torch.empty((b, s, n_heads, 4, e // 4), **f32)] + [
+            torch.empty(shape, **f32) for _ in range(3)]
+    state = init_slstm_state(b, e // 4 * n_heads, n_heads, device=pre.device)
+    for t, pre_t in enumerate(pre.unbind(1)):
+        state, gates = _slstm_step(pre_t, r, state)
+        out[0][:, t] = state["h"]
+        if keep:
+            for buf, x in zip(out[1:], gates + (state["c"], state["n"])):
+                buf[:, t] = x
+    return tuple(out)
+
+
+def _scan_backward(d_out, r, h, sig, z, c, n, *, pre_dtype):
+    """The gradients of :func:`_scan_forward`'s h with respect to ``pre``
+    (in ``pre_dtype``) and ``r``, from the kept gates, z, c and n. dh,
+    dc and dn are carried back through time by hand, about ten launches
+    a step; whatever does not depend on the carries is formed for all
+    steps at once before the loop, and r's gradient is one product over
+    all steps after it."""
+    i, f, o = sig[:, :, :, 0], sig[:, :, :, 1], sig[:, :, :, 3]
+    m = torch.clamp(n, min=1.0)
+    shift = lambda x: torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], 1)
+    # h = o·c / max(n, 1): dh's share of dc, dn and o's pre-activation.
+    dc_dh = o / m
+    dn_dh = torch.where(n >= 1.0, -(o * c) / (m * m), 0.0)
+    # Each gate block's pre-activation gradient is dc·P + dn·Q + dh·R
+    # (the blocks i, f, z, o along dim 3): i from c += i·z and n += i,
+    # f from f·c_prev and f·n_prev, z from i·z, o from h.
+    di, df = i * (1 - i), f * (1 - f)
+    zero = torch.zeros_like(i)
+    p = torch.stack([z * di, shift(c) * df, i * (1 - z * z), zero], 3)
+    q = torch.stack([di, shift(n) * df, zero, zero], 3)
+    rr = torch.stack([zero, zero, zero, c / m * o * (1 - o)], 3)
+    del di, df, zero, m
+    d_g = torch.empty_like(p)
+    dh = dc = dn = None
+    for t in range(d_out.shape[1] - 1, -1, -1):
+        dh = d_out[:, t] if dh is None else d_out[:, t] + dh
+        dc = dh * dc_dh[:, t] if dc is None else torch.addcmul(
+            dc, dh, dc_dh[:, t])
+        dn = dh * dn_dh[:, t] if dn is None else torch.addcmul(
+            dn, dh, dn_dh[:, t])
+        g_t = d_g[:, t]
+        torch.mul(dc.unsqueeze(2), p[:, t], out=g_t)
+        g_t.addcmul_(dn.unsqueeze(2), q[:, t])
+        g_t.addcmul_(dh.unsqueeze(2), rr[:, t])
+        dc, dn = dc * f[:, t], dn * f[:, t]
+        dh = torch.einsum("bhe,hde->bhd", g_t.flatten(-2), r)
+    d_g = d_g.flatten(-2)
+    return d_g.to(pre_dtype), torch.einsum("bshd,bshe->hde", shift(h), d_g)
+
+
+#: The CUDA graphs of the sLSTM loops, one for each function, shapes and
+#: dtypes: (graph, static inputs, outputs). None of their ops has a
+#: nondeterministic form, so one graph serves both settings of
+#: ``torch.use_deterministic_algorithms``.
+_GRAPHS = {}
+
+
+def _graphed(fn, *args, **kw):
+    """``fn(*args, **kw)``: on CUDA tensors through a CUDA graph of it,
+    captured at the first call with these shapes (after one call on a
+    side stream, as capture requires) and replayed after copying
+    ``args`` into its static inputs; the outputs are copies, so the next
+    replay leaves them alone. A loop's thousands of small launches then
+    cost the host one replay; on the CPU ``fn`` runs as it is."""
+    if not args[0].is_cuda:
+        return fn(*args, **kw)
+    key = (fn.__name__, tuple(sorted(kw.items())), args[0].device,
+           tuple((x.shape, x.dtype) for x in args))
+    entry = _GRAPHS.get(key)
+    if entry is None:
+        static = [torch.empty(x.shape, dtype=x.dtype, device=x.device)
+                  for x in args]
+        for dst, x in zip(static, args):
+            dst.copy_(x)
+        side = torch.cuda.Stream(device=args[0].device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(*static, **kw)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            outs = fn(*static, **kw)
+        entry = _GRAPHS[key] = (graph, static, outs)
+    else:
+        for dst, x in zip(entry[1], args):
+            dst.copy_(x)
+    entry[0].replay()
+    return tuple(x.clone() for x in entry[2])
+
+
+def release_slstm_graphs():
+    """Free the sLSTM's CUDA graphs and the device memory they hold."""
+    _GRAPHS.clear()
+
+
+class _SLSTMScan(torch.autograd.Function):
+    """The sLSTM loop over time as one autograd node: ``pre`` (B, S, H,
+    4·dh) and ``r`` (H, dh, 4·dh) f32 to every step's h, (B, S, H, dh)
+    f32. Forward and backward each run as one CUDA graph on the card
+    (:func:`_graphed`)."""
+
+    @staticmethod
+    def forward(ctx, pre, r):
+        h, *kept = _graphed(_scan_forward, pre, r, keep=True)
+        ctx.pre_dtype = pre.dtype
+        ctx.save_for_backward(r, h, *kept)
+        return h
+
+    @staticmethod
+    def backward(ctx, d_out):
+        return _graphed(_scan_backward, d_out, *ctx.saved_tensors,
+                        pre_dtype=ctx.pre_dtype)
 
 
 def init_slstm_state(batch, d_model, n_heads, device=None):
@@ -359,16 +507,15 @@ def _slstm_inputs(params, x, n_heads):
 
 
 def apply_slstm(params, x, *, n_heads):
-    """A Python loop over time (the recurrence runs hidden to hidden)."""
+    """A loop over time (the recurrence runs hidden to hidden), one CUDA
+    graph on the card; one autograd node where gradients are wanted."""
     b, s, d_model = x.shape
     pre, r = _slstm_inputs(params, x, n_heads)
-    state = init_slstm_state(b, d_model, n_heads, device=x.device)
-    hs = []
-    for t in range(s):
-        state = slstm_cell(pre[:, t], r, state)
-        hs.append(state["h"])
-    y = torch.stack(hs, dim=1).reshape(b, s, d_model).to(x.dtype)
-    return dense(params["out_proj"], y)
+    if torch.is_grad_enabled() and (pre.requires_grad or r.requires_grad):
+        y = _SLSTMScan.apply(pre, r)
+    else:
+        y, = _graphed(_scan_forward, pre, r, keep=False)
+    return dense(params["out_proj"], y.reshape(b, s, d_model).to(x.dtype))
 
 
 def decode_slstm(params, x, state, *, n_heads):

@@ -80,7 +80,7 @@ from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.kernels.ssm_scan import ref as ssm_ref
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
-from repro_torch.models import moe, transformer
+from repro_torch.models import moe, ssm, transformer
 from repro_torch.models.cnn import client_grads_fn, init_cnn
 from repro_torch.models.ssm import chunked_gla
 from repro_torch.optim import momentum, sgd
@@ -765,6 +765,87 @@ def test_recurrent_slice_on_card_matches_cpu(card, name, kw):
     for (tc, lc), (tg, lg) in zip(out["cpu"][2], out["cuda"][2]):
         assert torch.equal(tg, tc)
         torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+
+
+def _slstm_eager(pre, r):
+    """The sLSTM loop through ``slstm_cell`` launch by launch, autograd
+    recording every step: the route the CUDA graphs replace."""
+    b, s, n_heads, _ = pre.shape
+    state = ssm.init_slstm_state(b, n_heads * r.shape[1], n_heads,
+                                 device=pre.device)
+    hs = []
+    for t in range(s):
+        state = ssm.slstm_cell(pre[:, t], r, state)
+        hs.append(state["h"])
+    return torch.stack(hs, 1)
+
+
+@pytest.mark.parametrize("deterministic", [False, True],
+                         ids=["default", "deterministic"])
+def test_slstm_graphs_match_the_eager_loop(card, deterministic):
+    """The sLSTM's loops as CUDA graphs (the forward keeping what the
+    backward reads, the forward alone, and the hand-written backward):
+    three calls with other inputs each (the first captures, the others
+    replay after copying their inputs in), with deterministic algorithms
+    off or on (one graph serves both), against the loop launched step
+    by step with autograd on the card: h bitwise, the gradients of the
+    bf16 input projection and of r within 1e-5 of the largest, the bf16
+    one also within one bf16 ulp (2**-7 relative) of each element: its
+    f32 sums run in another order, and an element at a rounding boundary
+    lands on the neighbouring bf16 value."""
+    ssm.release_slstm_graphs()
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        for seed in range(3):
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            pre = (torch.randn(4, 40, 2, 128, device="cuda", generator=gen)
+                   * 2).bfloat16()
+            r = torch.randn(2, 32, 128, device="cuda", generator=gen) / 32 ** 0.5
+            w = torch.randn(4, 40, 2, 32, device="cuda", generator=gen)
+            outs = []
+            for fn in (ssm._SLSTMScan.apply, _slstm_eager):
+                p, q = pre.clone().requires_grad_(), r.clone().requires_grad_()
+                y = fn(p, q)
+                outs.append((y,) + torch.autograd.grad((y * w).sum(), (p, q)))
+            (y, d_pre, d_r), (y_ref, d_pre_ref, d_r_ref) = outs
+            with torch.no_grad():
+                y_alone, = ssm._graphed(ssm._scan_forward, pre, r, keep=False)
+            assert torch.equal(y, y_ref) and torch.equal(y_alone, y_ref)
+            for got, ref_ in ((d_pre, d_pre_ref), (d_r, d_r_ref)):
+                torch.testing.assert_close(
+                    got.float(), ref_.float(),
+                    rtol=2 ** -7 if got.dtype == torch.bfloat16 else 0,
+                    atol=1e-5 * ref_.abs().max().item())
+        assert len(ssm._GRAPHS) == 3
+    finally:
+        torch.use_deterministic_algorithms(False)
+        ssm.release_slstm_graphs()
+
+
+def test_xlstm_gradients_on_card_match_cpu(card):
+    """A reduced xlstm (mLSTM and sLSTM, f32, remat full) differentiated
+    on the card (the sLSTM's loops as CUDA graphs, the mLSTM through
+    ``chunked_gla``) against the CPU (the loops launched step by step):
+    the loss ``rtol=1e-5``, every gradient within 1e-4 of its leaf's
+    largest."""
+    from repro_torch._tree import tree_leaves, tree_map
+    cfg = get_config("xlstm-1.3b").reduced().replace(gla_chunk=16, remat=True)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (2, 41))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda x: x.requires_grad_(), transformer.init_lm(
+            trandom.PRNGKey(0, device=dev), cfg))
+        raw = torch.from_numpy(toks).to(dev)
+        losses, _ = transformer.per_example_loss(
+            params, cfg, {"tokens": raw[:, :-1], "labels": raw[:, 1:]})
+        loss = losses.sum()
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        out[dev] = (loss.item(), [g.cpu() for g in grads])
+    ssm.release_slstm_graphs()
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for g, c in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(g, c, rtol=0,
+                                   atol=1e-4 * c.abs().max().item() + 1e-12)
 
 
 def test_decode_attention_reads_the_bf16_cache_in_place(card):
