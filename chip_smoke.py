@@ -11,7 +11,9 @@ without printing its result line:
 2. Build: compiles the aggregate kernels (``csrc/aggregate.cu``), the
    flash-attention kernel (``csrc/flash_attention.cu``) and the scan
    kernel (``csrc/gla_scan.cu``) with nvcc, one process for each source,
-   all at once, and prints the seconds. For K3 it prints ptxas's
+   all started at once; it waits for the aggregate kernels, which the
+   phases up to the dist phase use, and for the other two after the
+   dist phase ("build wait"), printing the seconds. For K3 it prints ptxas's
    registers and spills of the bf16 kernels and fails on a spill or a
    setmaxnreg or wgmma-serialisation warning (C7508, C7520), and counts
    their HGMMA and UTMALDG instructions in the SASS (cuobjdump), which
@@ -100,7 +102,43 @@ without printing its result line:
    p50/p99 request latency (taken after the card finished), scenarios/s
    and launches, with the card's name and power limit. Any response
    with an ``error`` fails the phase.
-8. K3 phase: the flash-attention kernel against its plain version
+8. Dist phase: the Fig-1 study across ranks, started by
+   ``repro_torch.launch.distributed.launch_simulated`` as copies of this
+   script (``--dist-child``, each a rank from the ``REPRO_DIST_*``
+   environment): 4 ranks over NCCL on a machine of four cards or more,
+   2 on one of two or three (40 clients split over 2 or 4 ranks, not
+   3), else 2 ranks sharing the one card over gloo. N = 40 clients, the
+   316,554-parameter CNN, batch 16, 4 energy groups, sgd 0.05; alg1 and
+   benchmark1 at populations 40 and 37, 2 seeds, 10 steps, through
+   ``Study.run(config=ExecutionConfig(mesh=...))`` on a clients mesh at
+   ``gather``, ``psum`` and ``fused``, a cells mesh, and a 2 x 2 grid
+   mesh when W = 4; each with ``use_kernel=True`` and again with
+   ``use_kernel=False``. Each rank first holds K1 and K2's delta form at
+   its shard of a ragged (40, P) buffer whose last shard has every row
+   masked (NaN) against their plain versions (1e-6; that shard's
+   results exact zeros). Held here: cells and ``gather`` bitwise the
+   same study run unsharded in this process; ``psum`` and ``fused`` over
+   two client shards bitwise (every step's loss, the params, the
+   participation) the unsharded study with its client sum split in two
+   halves as the ranks split it (``split_rows``: each half through K1,
+   or K2's delta, alone, then one f32 add, which is what two ranks'
+   all-reduce does), their weight sums within 1e-6; over four shards
+   (the ring's order) participation bitwise and the losses of steps 1-3
+   within rtol=1e-5, atol=1e-6 of the unsplit study. The per-step loss
+   distance to the unsplit study and the final params' are printed.
+   Each kernel run against its plain run at the same mesh within 1e-6;
+   one compile per structure group per rank and none on the warm
+   repeat; the params' sha256 equal on every rank; each rank's K1 and
+   K2 launches (a launch a step of every cell the rank runs). Prints
+   the backend, world size, cards and whether they are shared, each
+   combination's ms per cell-step on each rank (host clock,
+   synchronised, median and spread of its first run and a repeat, after
+   one untimed step that pays a fresh process's one-off costs), and K1
+   and K2's delta timed at a shard's rows (20 and 10 of 40, the last
+   masked) beside their plain versions, ``torch.mv`` / ``torch.addmv``
+   and the bound (the active rows' bytes). Each line carries the card's
+   name and power limit, "shared card" where the ranks shared one.
+9. K3 phase: the flash-attention kernel against its plain version
    computed in f32 from the same inputs, at the prefill shape of the LM
    phase (B = 8, H = 32, S = T = 2,048, Dh = 64, causal, bf16),
    minitron-4b's attention at the same B and S (H = 24, Hkv = 8,
@@ -120,7 +158,7 @@ without printing its result line:
    bound, with the achieved TFLOP/s, the share of the bound, and the
    time the exponentials take at the MUFU rate (one ex2 per visible
    score, 16 a clock per SM at the card's top SM clock).
-9. K4 phase: the gated-linear-recurrence scan through
+10. K4 phase: the gated-linear-recurrence scan through
    ``repro_torch.kernels.ssm_scan.gla_scan`` at the full width of the two
    layers it serves, B = 8 × S = 2,048, chunk 64: zamba2-2.7b's Mamba2
    layer (H = 80, dk = dv = 64; a and v f32, k and q bf16, one row a
@@ -137,7 +175,7 @@ without printing its result line:
    the larger of the bytes and 3 x the operations at the TF32 tensor-core
    rate (3xTF32). The line also prints the bound at the f32 rate, the
    count earlier runs report; the ``kernels`` line holds the route's.
-10. LM phase: stablelm-1.6b at full width (24 layers, d_model 2048, 32
+11. LM phase: stablelm-1.6b at full width (24 layers, d_model 2048, 32
    heads of 64, d_ff 5632, vocab 100352, bf16; random weights from a
    seed). Three prefills of B = 8 × S = 2,048 through
    ``make_prefill_step`` with ``use_flash=True``: the K3 count is set to
@@ -152,7 +190,7 @@ without printing its result line:
    reference prefill of those 192 tokens by the same rule, and 32
    greedy steps. ``torch.profiler`` over one prefill and one decode
    step, and the peak device memory.
-11. Train phase, on the LM phase's weights: the driver
+12. Train phase, on the LM phase's weights: the driver
    (``repro_torch.launch.train.main``) at stablelm-1.6b full width, remat
    on, B = 16 x S = 1,024 over 8 clients, alg1 on periodic arrivals,
    adamw 1e-4: one warm-up step, 6 timed (host clock after a
@@ -171,7 +209,7 @@ without printing its result line:
    width cut to 2 layers, a straight 8-step driver run against one
    halted at step 4 (``--halt-at``) and resumed in a child process (this
    script with ``--train-child``): losses and final params bitwise.
-12. Recurrent phase: zamba2-2.7b (9 super-blocks of 5 Mamba2 blocks and
+13. Recurrent phase: zamba2-2.7b (9 super-blocks of 5 Mamba2 blocks and
    the shared attention block, Dh = 80) and xlstm-1.3b (6 of 7 mLSTM and
    1 sLSTM) at full width, random bf16 weights from a seed, in turn.
    One prefill of B = 8 x S = 2,048 through ``make_prefill_step`` with
@@ -194,7 +232,7 @@ without printing its result line:
    device's busy share, K4's and K3's shares of the device time), and
    the peak device memory. Each line
    carries the card's name and power limit.
-13. Zoo phase: the five decoder-only configs at full width, random bf16
+14. Zoo phase: the five decoder-only configs at full width, random bf16
    weights from a seed, each at the depth one card holds beside its f32
    copy: minitron-4b (all 32 layers), deepseek-coder-33b (4 of 62),
    command-r-35b (4 of 40), phi3.5-moe-42b-a6.6b (6 of 32; 16 experts
@@ -221,7 +259,7 @@ without printing its result line:
    dispatch, expert products and combine (its ``torch.profiler``
    ranges), and the rest, as shares of the device time. Each line
    carries the card's name and power limit.
-14. Multimodal phase: qwen2-vl-2b (28 layers, 12 heads over 2 kv heads
+15. Multimodal phase: qwen2-vl-2b (28 layers, 12 heads over 2 kv heads
    of 128, M-RoPE, 256 vision tokens) and whisper-tiny (4 encoder and 4
    decoder layers, 6 heads of 64, sinusoidal positions) at full width
    and depth, random bf16 weights from a seed, in turn: init; one
@@ -243,7 +281,7 @@ without printing its result line:
    steps; one prefill under ``torch.profiler`` (K3's share of the device
    time); the peak device memory. Each line carries the card's name and
    power limit.
-15. Zoo train phase: whisper-tiny (B = 16 x S = 448, 1,500 zero frames),
+16. Zoo train phase: whisper-tiny (B = 16 x S = 448, 1,500 zero frames),
    qwen2-vl-2b (B = 16 x S = 1,024, 256 synthetic patch embeddings a
    row, given to the driver as ``side_inputs``: its own zero vision
    tokens make full-depth training non-finite, ROADMAP R5), zamba2-2.7b
@@ -266,9 +304,11 @@ without printing its result line:
    cast to bf16 for the one-dtype flat buffer), 1 step, counted, against
    K2's plain version. Each line carries the card's name and power
    limit.
-16. Prints the ``kernels`` JSON line (K1 and K2 also carry the engine,
-   faults and serve phases' counts, ``engine_launches``,
-   ``faults_launches`` and ``serve_launches``; K2 the train phases'
+17. Prints the ``kernels`` JSON line (K1 and K2 also carry the engine,
+   faults, serve and dist phases' counts, ``engine_launches``,
+   ``faults_launches``, ``serve_launches`` and ``dist_launches`` (a
+   rank's, by combination), and their times at a shard's rows,
+   ``sharded_shapes``; K2 the train phases'
    flat SGD launches, ``train_launches`` (stablelm's under ``flat_sgd``,
    zamba2's under its name), and its time at stablelm's shape,
    ``train_shape``; K3
@@ -276,6 +316,16 @@ without printing its result line:
    multimodal phases', ``zoo_launches`` and ``mm_launches``; K4's
    ``launches`` are the recurrent prefills', its K4 phase's count
    ``phase_launches``), then the result line.
+
+The three child processes (``--resume-child``, ``--serve-child``,
+``--train-child``) are started a little before they are needed: each
+loads the interpreter, torch and the port while this process works on,
+then waits on its standard input for its directory. The train child
+reports its last step before the driver writes its final checkpoint;
+that write runs beside the recurrent phase, and the child's exit is
+checked after it (``phase seconds`` lists the wait as "resume end").
+The dist phase's ranks (``--dist-child``) are started by
+``launch_simulated`` when that phase begins.
 
 Tolerances: f32 aggregate kernels against the plain versions
 rtol=atol=1e-6 (the client sum runs in another order; weights at the
@@ -340,6 +390,15 @@ RESUME_CELLS, CHECKPOINT_EVERY, TIMING_REPEATS = ("clean", "drop", "stale"), 10,
 SERVE_POPULATIONS, SERVE_STEPS, SERVE_THREADS = (
     (10, 15, 20, 25, 30, 35, 40, 40), 20, 4)
 RECOVER_POPULATIONS = (20, 30, 40)
+# Dist phase: the Fig-1 study across ranks (schedulers, populations,
+# steps, seeds, the client reductions of a clients axis, the repeats of a
+# kernel combination after its first run, and the steps whose losses
+# psum and fused over four client shards are held over), and the shard
+# rows K1 and K2's delta are timed at.
+DIST_SCHEDULERS, DIST_POPULATIONS = ("alg1", "benchmark1"), (40, 37)
+DIST_STEPS, DIST_SEEDS, DIST_REPEATS, DIST_HELD_STEPS = 10, 2, 1, 3
+DIST_REDUCTIONS = ("gather", "psum", "fused")
+DIST_ROWS = (20, 10)
 # Steps a fault cell is profiled over: a step's device ops do not vary,
 # and the profiler's own cost grows with the ops it records.
 FAULT_PROFILE_STEPS = 2
@@ -385,6 +444,46 @@ def card_peaks(name):
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def spawn_child(flag, stderr=subprocess.PIPE):
+    """Start this script as a ``flag`` child now: it loads the
+    interpreter, torch and the port and makes its CUDA context while
+    this process works on (the train resume line prints its child's
+    share of that), then waits on its standard input for its directory
+    (:func:`child_directory`; :func:`run_child` sends it). A child left
+    waiting exits when this process does and its stdin closes."""
+    return subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), flag, "-"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=stderr,
+        text=True)
+
+
+def run_child(proc, directory, timeout=600):
+    """Send a :func:`spawn_child` child its directory and wait for it
+    (killed at ``timeout``); returns its ``CompletedProcess``."""
+    try:
+        out, err = proc.communicate(directory + "\n", timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+
+def child_directory(arg):
+    """A child's directory: ``arg``, or for ``-`` the line its parent
+    sends once the child has loaded and made its CUDA context
+    (:func:`spawn_child`)."""
+    if arg != "-":
+        return arg
+    import torch
+
+    torch.zeros((), device=DEVICE)
+    line = sys.stdin.readline().strip()
+    if not line:
+        raise SystemExit("chip_smoke child: the parent sent no directory")
+    return line
 
 
 def flush_buffer(torch):
@@ -871,6 +970,7 @@ def resume_child(ckdir):
     import torch
 
     rt = load_port()
+    ckdir = child_directory(ckdir)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
@@ -994,6 +1094,9 @@ def faults_phase(torch, rt, data, card):
               f"{n} {sorted(t)[len(t) // 2]:.2f} "
               f"[{' '.join(f'{x:.2f}' for x in t)}]"
               for n, t in timed.items()) + f" [{card}]")
+    # The resume check's child loads while the profiles and the
+    # checkpointed study run.
+    resume_proc = spawn_child("--resume-child")
     # Where a fault's time goes: the device ops a step and the device's
     # busy share, clean against each family.
     key = rt.random.PRNGKey(ENGINE_SEEDS[0], device=DEVICE)
@@ -1040,9 +1143,7 @@ def faults_phase(torch, rt, data, card):
 
         killed_dir = os.path.join(tmp, "killed")
         t0 = time.perf_counter()
-        child = subprocess.run(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--resume-child",
-             killed_dir], capture_output=True, text=True, timeout=600)
+        child = run_child(resume_proc, killed_dir)
         child_s = time.perf_counter() - t0
         check(child.returncode == -signal.SIGKILL,
               f"faults resume: the child exited {child.returncode}, not by "
@@ -1103,6 +1204,7 @@ def serve_child(root):
     import torch
 
     rt = load_port()
+    root = child_directory(root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
@@ -1228,6 +1330,8 @@ def serve_phase(torch, rt, data, card):
           f"latency {latency(warm)}; {n_req / warm_s:.2f} scenarios/s; bit "
           f"for bit the cold round [{card}]")
 
+    # The recover check's child loads while the rounds below run.
+    serve_proc = spawn_child("--serve-child")
     # Concurrent submitters through the batching thread, and a competing
     # flusher: dispatches may overlap on the card's default stream.
     pops = [SERVE_POPULATIONS[2 * i] for i in range(SERVE_THREADS)]
@@ -1281,9 +1385,7 @@ def serve_phase(torch, rt, data, card):
         served("checkpointed", whole, len(recover))
         root = os.path.join(tmp, "killed")
         t0 = time.perf_counter()
-        child = subprocess.run(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--serve-child",
-             root], capture_output=True, text=True, timeout=600)
+        child = run_child(serve_proc, root)
         child_s = time.perf_counter() - t0
         check(child.returncode == -signal.SIGKILL,
               f"serve recover: the child exited {child.returncode}, not by "
@@ -1367,6 +1469,470 @@ K3_TIMED = ("prefill shape", "minitron-4b", "zamba2-2.7b", "deepseek-coder-33b",
 # MUFU ex2 results a clock per SM on compute capability 9.0 (CUDA C++
 # programming guide, arithmetic instruction throughput).
 MUFU_PER_CLOCK = 16
+
+
+def dist_study(rt, steps):
+    """The dist phase's study: alg1 and benchmark1 on the paper's
+    periodic arrivals at populations 40 and 37 (one ragged group each),
+    DIST_SEEDS seeds."""
+    return (rt.experiments.Study("dist_fig1", num_steps=steps)
+            .axis("scheduler", list(DIST_SCHEDULERS))
+            .axis("arrivals", "periodic")
+            .axis("n_clients", list(DIST_POPULATIONS))
+            .axis("seeds", DIST_SEEDS))
+
+
+def dist_sim(rt, data, use_kernel, optimizer=None):
+    """The Fig-1 simulator of the dist phase on ``data`` (fig1_setup's):
+    sgd(LR), the test split's loss."""
+    batcher, _, test_x, test_y = data
+    return rt.core.ClientSimulator(
+        grads_fn=rt.models.client_grads_fn(batcher), p=batcher.p,
+        optimizer=rt.optim.sgd(LR) if optimizer is None else optimizer,
+        loss_fn=lambda w: rt.models.cnn_loss(w, test_x, test_y),
+        use_kernel=use_kernel, device=DEVICE)
+
+
+def dist_masked_shard(torch, ops, ref, placement, p):
+    """K1 and K2's delta form over this rank's shard of a ragged
+    (N_CLIENTS, p) buffer whose population ends one row before the last
+    shard starts, masked rows NaN: the local results against the plain
+    versions on the same rows within 1e-6 (the last shard exact zeros),
+    and the all-reduced sums against the plain reduction of the whole
+    buffer within 1e-6."""
+    from repro_torch.core.energy import ClientShard, shard_all_reduce
+
+    mesh = placement.make_client_mesh()
+    shards, index = mesh.size, mesh.coords[0]
+    shard = ClientShard(placement.CLIENT_AXIS, shards, "psum", index,
+                        mesh.groups[0])
+    n_local = N_CLIENTS // shards
+    n_active = (shards - 1) * n_local - 1
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    g = torch.randn(N_CLIENTS, p, generator=gen).to(DEVICE)
+    w = (torch.rand(N_CLIENTS, generator=gen) * (2.0 / N_CLIENTS)).to(DEVICE)
+    mask = (torch.arange(N_CLIENTS) < n_active).float().to(DEVICE)
+    clean = torch.where(mask[:, None] > 0, g, 0.0)
+    poisoned = torch.where(mask[:, None] > 0, g, float("nan"))
+    rows = slice(index * n_local, (index + 1) * n_local)
+    g_l, w_l, m_l = poisoned[rows].contiguous(), w[rows], mask[rows]
+    eta = torch.tensor(LR, device=DEVICE)
+    k1_local = ops.masked_scaled_aggregate(g_l, w_l, out_dtype=torch.float32,
+                                           mask=m_l)
+    k2_local = ops.masked_scaled_aggregate_update(g_l, w_l, eta, None, m_l)
+    k1 = ops.masked_scaled_aggregate_sharded(g_l, w_l, shard=shard, mask=m_l)
+    k2 = shard_all_reduce(k2_local, shard)
+    err = lambda a, b: (a - b).abs().max().item()  # noqa: E731
+    out = {"rank": index, "rows": [rows.start, rows.stop],
+           "active_rows": int(m_l.sum().item()), "p": p,
+           "local_k1_err": err(k1_local, ref.masked_scaled_aggregate_ref(
+               clean[rows], w_l, m_l, torch.float32)),
+           "local_k2_err": err(k2_local,
+                               ref.masked_scaled_aggregate_update_ref(
+                                   clean[rows], w_l, eta, None, m_l)),
+           "k1_err": err(k1, ref.masked_scaled_aggregate_ref(
+               clean, w, mask, torch.float32)),
+           "k2_err": err(k2, ref.masked_scaled_aggregate_update_ref(
+               clean, w, eta, None, mask)),
+           "local_zero": bool(
+               torch.equal(k1_local, torch.zeros_like(k1_local))
+               and torch.equal(k2_local, torch.zeros_like(k2_local)))}
+    check(out["active_rows"] > 0 or out["local_zero"],
+          f"dist rank {index}: an all-masked shard gave non-zero K1/K2 "
+          f"results: {out}")
+    for name in ("local_k1_err", "local_k2_err", "k1_err", "k2_err"):
+        check(out[name] <= 1e-6, f"dist rank {index}: {name} "
+              f"{out[name]:.3g} above 1e-6: {out}")
+    return out
+
+
+def dist_child(out):
+    """A rank of the dist phase (``--dist-child``, started by
+    ``launch_simulated``, the rank from the ``REPRO_DIST_*``
+    environment): the masked-shard check, then the study on every
+    (kernel route, mesh, reduction): one compile per structure group and
+    none on the repeat, K1's and K2's launches in the first run, the
+    first run and DIST_REPEATS repeats timed on the kernel route (host
+    clock, synchronised) after one untimed step, the final params'
+    sha256. Rank 0 writes the results npz; every rank its report."""
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    rt = load_port()
+    from repro_torch.experiments import ExecutionConfig, engine, placement
+    from repro_torch.kernels.aggregate import ops, ref
+    from repro_torch.launch import distributed as D
+
+    t_setup = time.perf_counter()
+    device = D.init_from_env()
+    size, rank = placement._world()
+    threads = D.share_threads(size)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # Replicated params stay bit-equal only with deterministic cuDNN.
+    torch.backends.cudnn.deterministic = True
+    backend = tdist.get_backend()
+    data = fig1_setup(torch, rt)
+    report = {"process_id": rank, "process_count": size,
+              "device": str(device), "backend": backend,
+              # NCCL refuses two ranks on one card: gloo on the card means
+              # the ranks share it.
+              "shared_card": backend == "gloo", "threads": threads,
+              "masked_shard": dist_masked_shard(
+                  torch, ops, ref, placement,
+                  rt.core.ravel_spec(data[1]).total),
+              "combos": {}}
+    study = dist_study(rt, DIST_STEPS)
+    n_cells = len(study.resolve()) * DIST_SEEDS
+    report["setup_s"] = time.perf_counter() - t_setup
+    meshes = ("clients", "cells") + (("grid",) if size == 4 else ())
+    # One step on the first mesh, untimed: a fresh process pays its
+    # one-off costs (cuDNN's first choices, the first collectives) here.
+    t0 = time.perf_counter()
+    dist_study(rt, 1).run(sim=dist_sim(rt, data, True), params0=data[1],
+                          config=ExecutionConfig(
+                              mesh=D._build_mesh(meshes[0]),
+                              client_reduction=DIST_REDUCTIONS[0]))
+    torch.cuda.synchronize()
+    report["warmup_s"] = time.perf_counter() - t0
+    flat_all = {}
+    for use_kernel in (True, False):
+        sim = dist_sim(rt, data, use_kernel)
+        _, _, groups = engine.resolve_structure_groups(study.resolve(),
+                                                       sim=sim)
+        for kind in meshes:
+            mesh = D._build_mesh(kind)
+            _, client_ax = placement._mesh_axes(mesh)
+            for reduction in DIST_REDUCTIONS if client_ax else (None,):
+                tag = (kind if reduction is None else f"{kind}-{reduction}") \
+                    + ("" if use_kernel else "-plain")
+                cfg = ExecutionConfig(mesh=mesh,
+                                      client_reduction=reduction or "psum")
+                before = placement._run_group_sharded._cache_size()
+                walls = []
+                # The plain route is the kernels' reference and runs once.
+                for i in range(1 + DIST_REPEATS * use_kernel):
+                    ops.reset_launch_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    result = study.run(sim=sim, params0=data[1], config=cfg)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                    if i == 0:
+                        launches = dict(ops.launch_counts)
+                        compiles = (placement._run_group_sharded._cache_size()
+                                    - before)
+                        digest = D.params_digest(result.cells)
+                        flat_all.update(D.flatten_results(tag, result.cells))
+                check(compiles == len(groups),
+                      f"dist {tag}: expected one compile per structure "
+                      f"group ({len(groups)}), counted {compiles}")
+                warm = placement._run_group_sharded._cache_size() - before
+                ms = sorted(w / (n_cells * DIST_STEPS) * 1e3 for w in walls)
+                report["combos"][tag] = {
+                    "mesh_shape": dict(mesh.shape), "coords": mesh.coords,
+                    "use_kernel": use_kernel, "compiles": compiles,
+                    "warm_new_compiles": warm - compiles,
+                    "launches": launches,
+                    "ms_per_cell_step": statistics.median(ms),
+                    "ms_spread": [ms[0], ms[-1]], "repeats": len(walls),
+                    "params_sha256": digest}
+    if rank == 0:
+        np.savez(os.path.join(out, "results.npz"), **flat_all)
+    with open(os.path.join(out, f"report_p{rank}.json"), "w") as f:
+        json.dump(report, f, indent=1, sort_keys=True)
+    tdist.destroy_process_group()
+    return 0
+
+
+class split_rows:
+    """While entered, the one-rank engine reduces the client axis as two
+    client shards do: K1, and K2 with parameters, each run on rows
+    0..N/2-1 and N/2..N-1 alone into f32 and the halves added, then
+    K1's sum cast, or K2's added to the parameters in f32 (the sharded
+    step's order, ``fused_flat_sgd_update``). Two ranks' all-reduce is
+    that one f32 add, whichever rank's half comes first, so the sharded
+    psum and fused runs on two ranks can be held to it bit for bit."""
+
+    def __init__(self, torch, ops):
+        self.torch, self.ops = torch, ops
+        self.k1 = ops.masked_scaled_aggregate
+        self.k2 = ops.masked_scaled_aggregate_update
+
+    def _halves(self, g, w, mask):
+        n = g.shape[0] // 2
+        return [(g[s], w[s], None if mask is None else mask[s])
+                for s in (slice(0, n), slice(n, 2 * n))]
+
+    def aggregate(self, g, w, out_dtype=None, mask=None):
+        a, b = [self.k1(gi, wi, out_dtype=self.torch.float32, mask=mi)
+                for gi, wi, mi in self._halves(g, w, mask)]
+        return (a + b).to(g.dtype if out_dtype is None else out_dtype)
+
+    def update(self, g, w, eta, params=None, mask=None, *, out_dtype=None):
+        a, b = [self.k2(gi, wi, eta, None, mi)
+                for gi, wi, mi in self._halves(g, w, mask)]
+        if params is None:
+            return a + b
+        return (params.to(self.torch.float32) + (a + b)).to(params.dtype)
+
+    def __enter__(self):
+        self.ops.masked_scaled_aggregate = self.aggregate
+        self.ops.masked_scaled_aggregate_update = self.update
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.masked_scaled_aggregate = self.k1
+        self.ops.masked_scaled_aggregate_update = self.k2
+
+
+def dist_phase(torch, rt, ops, ref, peaks, card):
+    """The Fig-1 study across ranks (module docstring, phase 8). Returns
+    each rank's K1 and K2 launches by combination, and K1 and K2's delta
+    timed at a shard's rows."""
+    import numpy as np
+
+    from repro_torch.launch import distributed as D
+
+    phase_t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    # The 40 clients split over 2 or 4 ranks, not 3.
+    world = 4 if cards >= 4 else 2
+    shared = cards < 2
+    tag_card = f"[{card}{', shared card' if shared else ''}]"
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        D.launch_simulated(world, command=[
+            sys.executable, str(ROOT / "chip_smoke.py"), "--dist-child"],
+            argv=[out], timeout=600)
+        ranks_s = time.perf_counter() - t0
+        results = dict(np.load(os.path.join(out, "results.npz")))
+        reports = []
+        for rank in range(world):
+            with open(os.path.join(out, f"report_p{rank}.json")) as f:
+                reports.append(json.load(f))
+    rep0 = reports[0]
+    check([r["backend"] for r in reports] == ["gloo" if shared else "nccl"]
+          * world and all(r["shared_card"] == shared for r in reports),
+          f"dist: backends {[r['backend'] for r in reports]}")
+    print(f"dist: {world} ranks over {rep0['backend']} on {cards} card(s), "
+          f"{'shared by the ranks' if shared else 'one a rank'} "
+          f"({', '.join(r['device'] for r in reports)}); {rep0['threads']} "
+          f"torch threads a rank; gloo gathers and reduces CUDA tensors "
+          f"itself (torch {torch.__version__}); the ranks ran in "
+          f"{ranks_s:.1f} s wall, each rank's set-up (the Fig-1 data, the "
+          f"masked-shard check) {max(r['setup_s'] for r in reports):.1f} s "
+          f"{tag_card}")
+    for r in reports:
+        m = r["masked_shard"]
+        print(f"dist masked shard: rank {m['rank']} rows {m['rows'][0]}.."
+              f"{m['rows'][1] - 1} of a ragged (40, {m['p']:,}) buffer, "
+              f"{m['active_rows']} active; K1 local err {m['local_k1_err']:.3g}"
+              f", K2 delta local err {m['local_k2_err']:.3g}, after the "
+              f"all-reduce {m['k1_err']:.3g} / {m['k2_err']:.3g}"
+              + (", exact zeros" if m["local_zero"] else "") + f" {tag_card}")
+    check(reports[-1]["masked_shard"]["active_rows"] == 0
+          and reports[-1]["masked_shard"]["local_zero"],
+          "dist: the last shard must have no active row and give zeros")
+
+    # The same study on one rank, in this process, deterministic cuDNN:
+    # as it is (the oracle of cells and gather), and with the client sum
+    # split as two shards split it, through the psum route (sgd untagged,
+    # so the engine does not fuse) and through K2 (fused).
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    data = fig1_setup(torch, rt)
+    study = dist_study(rt, DIST_STEPS)
+    want = {"one": D.flatten_results("ref", study.run(
+        sim=dist_sim(rt, data, True), params0=data[1]).cells)}
+    with split_rows(torch, ops):
+        want["psum"] = D.flatten_results("ref", study.run(
+            sim=dist_sim(rt, data, True, rt.optim.sgd(LR)._replace(kind="")),
+            params0=data[1]).cells)
+        want["fused"] = D.flatten_results("ref", study.run(
+            sim=dist_sim(rt, data, True), params0=data[1]).cells)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    torch.backends.cudnn.deterministic = False
+    del data
+    tags = sorted({k.split("|")[0] for k in results})
+    kernel_tags = [t for t in tags if not t.endswith("-plain")]
+    n_cells = len(study.resolve()) * DIST_SEEDS
+
+    def keys(tag):
+        return [k for k in results if k.startswith(tag + "|")]
+
+    def dist_of(a, b):
+        return float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())
+
+    held_lines = {}
+    for tag in kernel_tags:
+        shape = rep0["combos"][tag]["mesh_shape"]
+        mode = tag.rsplit("-", 1)[-1] if "clients" in shape else "cells"
+        if mode in ("cells", "gather"):
+            # Bit for bit the one-rank study.
+            for k in keys(tag):
+                _, cell, field = k.split("|")
+                check(np.array_equal(results[k], want["one"][
+                    f"ref|{cell}|{field}"]),
+                      f"dist {tag}: {cell}/{field} differs from one rank")
+            held_lines[tag] = "bitwise the one-rank study"
+            continue
+        if shape["clients"] == 2:
+            # Bit for bit the one-rank study with the client sum split in
+            # two; the weight sum (recorded, not fed back) is summed over
+            # 40 rows there and over 2 x 20 here.
+            for k in keys(tag):
+                _, cell, field = k.split("|")
+                exp = want[mode][f"ref|{cell}|{field}"]
+                if field == "weight_sum":
+                    np.testing.assert_allclose(results[k], exp, rtol=1e-6,
+                                               atol=0)
+                else:
+                    check(np.array_equal(results[k], exp),
+                          f"dist {tag}: {cell}/{field} differs from the "
+                          f"one-rank study with the client sum split in two")
+            held_lines[tag] = ("every step's loss, the params and the "
+                               "participation bitwise the one-rank study with "
+                               "the client sum split in two as the ranks "
+                               "split it, the weight sums within 1e-6")
+        else:
+            # Four shards: their sum runs in the ring's order, which no
+            # one-rank split reproduces; participation bit for bit, the
+            # first steps' losses within f32 (the CNN at this step size
+            # separates f32-reassociated trajectories ~3x a step).
+            for k in keys(tag):
+                _, cell, field = k.split("|")
+                exp = want["one"][f"ref|{cell}|{field}"]
+                if field in ("participation", "finite", "diverged"):
+                    check(np.array_equal(results[k], exp),
+                          f"dist {tag}: {cell}/{field} differs from one rank")
+                elif field == "loss":
+                    np.testing.assert_allclose(
+                        results[k][..., :DIST_HELD_STEPS],
+                        exp[..., :DIST_HELD_STEPS], rtol=1e-5, atol=1e-6)
+            held_lines[tag] = (f"participation bitwise the one-rank study, "
+                               f"the losses of steps 1-{DIST_HELD_STEPS} "
+                               f"within rtol=1e-5, atol=1e-6")
+        losses = [k for k in keys(tag) if k.endswith("|loss")]
+        per_step = [max(dist_of(results[k][..., t],
+                                want["one"][k.replace(tag, "ref", 1)][..., t])
+                        for k in losses) for t in range(DIST_STEPS)]
+        params = max(dist_of(results[k], want["one"][k.replace(tag, "ref", 1)])
+                     for k in keys(tag) if k.endswith("|params"))
+        held_lines[tag] += (f"; against the unsplit one-rank study, max "
+                            f"|loss - one rank| by step "
+                            f"{' '.join(f'{x:.2g}' for x in per_step)}, final "
+                            f"params {params:.3g}")
+    for tag in kernel_tags:
+        worst = max(dist_of(results[k], results[k.replace(tag, tag + "-plain",
+                                                          1)])
+                    for k in keys(tag) if k.split("|")[2] in ("params",
+                                                               "loss"))
+        check(worst <= 1e-6, f"dist {tag}: kernels against plain {worst:.3g}")
+        print(f"dist {tag}: {held_lines[tag]}; kernels against plain at this "
+              f"mesh max {worst:.3g} {tag_card}")
+    launches = {}
+    n_groups = len(DIST_SCHEDULERS)
+    for r in reports:
+        digests = {t: c["params_sha256"] for t, c in r["combos"].items()}
+        check(digests == {t: c["params_sha256"]
+                          for t, c in rep0["combos"].items()},
+              f"dist: rank {r['process_id']}'s params differ from rank 0's")
+        launches[f"rank{r['process_id']}"] = {
+            t: c["launches"] for t, c in r["combos"].items()}
+        for t, c in r["combos"].items():
+            check(c["compiles"] == n_groups and c["warm_new_compiles"] == 0,
+                  f"dist {t}: compiles {c['compiles']}, warm "
+                  f"{c['warm_new_compiles']}")
+            # A launch a step of every cell the rank runs: its cell row's
+            # share of each group's cells (all of them on a clients mesh);
+            # K1 under gather and psum, K2 under fused and on a cells mesh
+            # (sgd fused), none on the plain route.
+            rows = c["mesh_shape"].get("cells", 1)
+            row = c["coords"][0] if "cells" in c["mesh_shape"] else 0
+            mine = n_groups * len(np.array_split(
+                np.arange(n_cells // n_groups), rows)[row])
+            k1_route = "clients" in c["mesh_shape"] and not t.endswith(
+                ("fused", "fused-plain"))
+            expect = {"masked_scaled_aggregate":
+                      mine * DIST_STEPS * (c["use_kernel"] and k1_route),
+                      "masked_scaled_aggregate_update":
+                      mine * DIST_STEPS * (c["use_kernel"] and not k1_route)}
+            check(c["launches"] == expect,
+                  f"dist {t} rank {r['process_id']}: launches "
+                  f"{c['launches']}, expected {expect}")
+    for t in rep0["combos"]:
+        row = "; ".join(
+            f"rank {r['process_id']} K1 {r['combos'][t]['launches']['masked_scaled_aggregate']}"
+            f" K2 {r['combos'][t]['launches']['masked_scaled_aggregate_update']}"
+            f" {r['combos'][t]['ms_per_cell_step']:.2f} ms/cell-step "
+            f"[{r['combos'][t]['ms_spread'][0]:.2f}, "
+            f"{r['combos'][t]['ms_spread'][1]:.2f}]" for r in reports)
+        c = rep0["combos"][t]
+        print(f"dist time {t} (mesh {c['mesh_shape']}, {n_cells} cells x "
+              f"{DIST_STEPS} steps, median of {c['repeats']} run(s), after a "
+              f"{rep0['warmup_s']:.1f} s untimed step a rank): {row} "
+              f"{tag_card}")
+    print(f"dist: one compile per structure group per rank, none on the warm "
+          f"repeat; params sha256 equal on all {world} ranks; the three "
+          f"one-rank reference studies in {ref_s:.2f} s {tag_card}")
+
+    # K1 and K2's delta at a shard's rows of the Fig-1 buffer (its last row
+    # masked), timed alone on the card (this process), beside the plain
+    # versions and the one PyTorch call of the same function (torch.mv,
+    # torch.addmv with beta 0, on the masked weights).
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    p = 316_554
+    flush = flush_buffer(torch)
+    eta = torch.tensor(LR, device=DEVICE)
+    shapes = {}
+    for n in DIST_ROWS:
+        g = torch.randn(n, p, device=DEVICE, generator=gen)
+        w = torch.rand(n, device=DEVICE, generator=gen) * (2.0 / N_CLIENTS)
+        mask = torch.ones(n, device=DEVICE)
+        mask[n - 1] = 0.0
+        wm, zeros = w * mask, torch.zeros(p, device=DEVICE)
+        torch.testing.assert_close(
+            ops.masked_scaled_aggregate(g, w, mask=mask),
+            ref.masked_scaled_aggregate_ref(g, w, mask), rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(
+            ops.masked_scaled_aggregate_update(g, w, eta, None, mask),
+            ref.masked_scaled_aggregate_update_ref(g, w, eta, None, mask),
+            rtol=1e-6, atol=1e-6)
+        gt = g.t()
+        # The kernels read the active rows only (a masked row is never
+        # loaded), the weights and the mask, and write the (P,) result.
+        active = int(mask.sum().item())
+        nbytes = 4 * (active * p + 2 * n + p)
+        bound = nbytes / peaks[0] * 1e3
+        for name, library, fns in (
+                ("k1", "torch.mv",
+                 (lambda: ops.masked_scaled_aggregate(g, w, mask=mask),
+                  lambda: ref.masked_scaled_aggregate_ref(g, w, mask),
+                  lambda: torch.mv(gt, wm))),
+                ("k2 delta", "torch.addmv",
+                 (lambda: ops.masked_scaled_aggregate_update(g, w, eta, None,
+                                                             mask),
+                  lambda: ref.masked_scaled_aggregate_update_ref(
+                      g, w, eta, None, mask),
+                  lambda: torch.addmv(zeros, gt, wm, beta=0, alpha=-LR)))):
+            t = [time_ms(torch, fn, flush) for fn in fns]
+            shapes[f"{name} {n} rows"] = {
+                "ms": t[0][0], "warm_ms": t[0][1], "plain_ms": t[1][0],
+                "library_ms": t[2][0], "bound_ms": bound, "bound_by": "bytes"}
+            print(f"time {name} at a shard's {n} of 40 rows (L2 flushed | "
+                  f"warm, ms): kernel {t[0][0]:.4f} | {t[0][1]:.4f}, plain "
+                  f"{t[1][0]:.4f} | {t[1][1]:.4f}, {library} {t[2][0]:.4f} | "
+                  f"{t[2][1]:.4f}, bound {bound:.4f} ({nbytes / 1e6:.1f} MB: "
+                  f"the {active} active rows, the weights, the mask and the "
+                  f"result; the timing floor is ~0.006-0.007 ms) [{card}]")
+    del flush
+    print(f"dist phase: took {time.perf_counter() - phase_t0:.1f} s {tag_card}")
+    return launches, shapes
 
 
 def build_report(build, source):
@@ -1866,22 +2432,73 @@ def resume_cfg(rt):
         n_layers=RESUME_LAYERS)
 
 
+def params_sha256(torch, tree):
+    """sha256 of a tensor tree's leaves: their dtypes, shapes and bytes."""
+    import hashlib
+
+    from repro_torch._tree import tree_leaves
+
+    h = hashlib.sha256()
+    for leaf in tree_leaves(tree):
+        h.update(f"{leaf.dtype}{tuple(leaf.shape)}".encode())
+        h.update(leaf.detach().reshape(-1).contiguous().view(torch.uint8)
+                 .cpu().numpy())
+    return h.hexdigest()
+
+
+# The line a resume child prints once its last step is done, before the
+# driver writes its final checkpoint.
+RESUMED_MARK = "train child resumed: "
+
+
 def train_child(ckdir):
     """The resume check's second leg, in a process of its own: resume the
-    run halted in ``ckdir`` to its end, deterministic, and write its
-    losses to ``ckdir/losses.json``."""
+    run halted in ``ckdir`` to its end, deterministic. After its last
+    step it prints RESUMED_MARK and its losses, final params' sha256
+    and times on one line; after the driver's final checkpoint it
+    writes that write's time to ``ckdir/child_times.json``."""
     import torch
 
     rt = load_port()
     from repro_torch.launch import train as train_mod
 
+    loaded = time.perf_counter()
+    ckdir = child_directory(ckdir)
+    handed = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     deterministic(torch, True)
-    losses = train_mod.main(
+    stamps, losses = {}, []
+
+    def on_step(step, state, metrics):
+        torch.cuda.synchronize()
+        stamps.setdefault("first_step", time.perf_counter())
+        stamps["last_step"] = time.perf_counter()
+        losses.append(float(metrics["loss"]))
+        if step == RESUME_STEPS - 1:
+            # Where the child's time went: interpreter and imports, its
+            # CUDA context and the wait for its directory (while the
+            # parent worked on), the driver's set-up and restore with the
+            # first resumed step, the other steps.
+            times = {"load_s": loaded - T0,
+                     "context_and_wait_s": handed - loaded,
+                     "restore_and_first_step_s": stamps["first_step"] - handed,
+                     "steps_s": stamps["last_step"] - stamps["first_step"]}
+            print(RESUMED_MARK + json.dumps({
+                "losses": losses, "times": times,
+                "params_sha256": params_sha256(torch, state.params)}),
+                flush=True)
+            # The card is the next phase's while the checkpoint is
+            # written: keep only what is allocated.
+            torch.cuda.empty_cache()
+
+    returned = train_mod.main(
         train_argv(RESUME_STEPS, "--checkpoint-dir", ckdir, "--resume"),
-        cfg=resume_cfg(rt))
-    with open(os.path.join(ckdir, "losses.json"), "w") as f:
-        json.dump(losses, f)
+        cfg=resume_cfg(rt), on_step=on_step)
+    check(returned == losses, f"train child: the driver returned {returned}, "
+          f"its steps gave {losses}")
+    with open(os.path.join(ckdir, "child_times.json"), "w") as f:
+        json.dump({"final_write_s": time.perf_counter() - stamps["last_step"]},
+                  f)
     return 0
 
 
@@ -2160,9 +2777,9 @@ def train_phase(torch, rt, params, ops, ref, peaks, card):
     the driver (``repro_torch.launch.train.main``) on the LM phase's
     weights; a masked client's tokens change nothing; the flat SGD route
     through K2 against its plain version, and K2 timed at that shape; a
-    2-layer run halted, resumed in a child process, bit for bit."""
-    from repro_torch._tree import tree_leaves
-    from repro_torch.checkpoint import restore_pytree
+    2-layer run halted, resumed in a child process, bit for bit. Returns
+    the flat SGD launches, K2's time at that shape, and the resume child
+    still writing its final checkpoint (:func:`finish_resume`)."""
     from repro_torch.launch import train as train_mod
 
     phase_t0 = time.perf_counter()
@@ -2260,8 +2877,21 @@ def train_phase(torch, rt, params, ops, ref, peaks, card):
     del g, pp, flush
     torch.cuda.empty_cache()
 
-    # Resume: a straight run against one halted and resumed in a child
-    # process, deterministic, at full width cut to RESUME_LAYERS layers.
+    resume = resume_check(torch, rt, card, phase_t0)
+    return {"flat_sgd": flat_launches}, k2_train, resume
+
+
+def resume_check(torch, rt, card, phase_t0):
+    """The train phase's resume check: a straight run against one halted
+    and resumed in a child process, deterministic, at full width cut to
+    RESUME_LAYERS layers. Returns the child, still writing the driver's
+    final checkpoint (:func:`finish_resume`)."""
+    from repro_torch.launch import train as train_mod
+
+    # The child reports its losses and final params after its last
+    # step; the driver's final checkpoint is then written while the next
+    # phase runs (finish_resume).
+    deterministic(torch, True)
     cfg2 = resume_cfg(rt)
     final, stamp = {}, {}
 
@@ -2273,50 +2903,93 @@ def train_phase(torch, rt, params, ops, ref, peaks, card):
         torch.cuda.synchronize()
         stamp["t"] = time.perf_counter()
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        straight = train_mod.main(train_argv(RESUME_STEPS), cfg=cfg2,
-                                  on_step=keep_last)
-        straight_s = time.perf_counter() - t0
-        ckdir = os.path.join(tmp, "halted")
-        halted = train_mod.main(
-            train_argv(RESUME_STEPS, "--checkpoint-dir", ckdir, "--halt-at",
-                       str(RESUME_HALT)), cfg=cfg2, on_step=at_halt)
-        write_ms = (time.perf_counter() - stamp["t"]) * 1e3
-        mb = os.path.getsize(os.path.join(ckdir, f"step_{RESUME_HALT}.npz")) / 1e6
-        # The child shares the card: hand it the memory this process
-        # holds cached.
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        child = subprocess.run(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--train-child",
-             ckdir], capture_output=True, text=True, timeout=600)
-        child_s = time.perf_counter() - t0
-        check(child.returncode == 0, f"train resume: the child exited "
-              f"{child.returncode}:\n{child.stdout[-3000:]}{child.stderr[-3000:]}")
-        with open(os.path.join(ckdir, "losses.json")) as f:
-            resumed = json.load(f)
-        restored = restore_pytree(
-            os.path.join(ckdir, f"step_{RESUME_STEPS}.npz"),
-            {"state": {"params": final["params"]}})["state"]["params"]
-    same = all(torch.equal(a, b) for a, b in
-               zip(tree_leaves(restored), tree_leaves(final["params"])))
-    check(halted == straight[:RESUME_HALT] and resumed == straight[RESUME_HALT:],
-          f"train resume: losses {halted} + {resumed} against {straight}")
-    check(same, "train resume: the resumed run's final params differ from "
-          "the straight run's")
+    # The child loads while the straight and halted runs go; its error
+    # stream goes to a file, so it cannot fill a pipe while the child
+    # writes its final checkpoint unread.
+    child_err = tempfile.TemporaryFile("w+")
+    train_proc = spawn_child("--train-child", stderr=child_err)
+    t0 = time.perf_counter()
+    straight = train_mod.main(train_argv(RESUME_STEPS), cfg=cfg2,
+                              on_step=keep_last)
+    straight_s = time.perf_counter() - t0
+    want_sha = params_sha256(torch, final.pop("params"))
+    tmp = tempfile.TemporaryDirectory()
+    ckdir = os.path.join(tmp.name, "halted")
+    halted = train_mod.main(
+        train_argv(RESUME_STEPS, "--checkpoint-dir", ckdir, "--halt-at",
+                   str(RESUME_HALT)), cfg=cfg2, on_step=at_halt)
+    write_ms = (time.perf_counter() - stamp["t"]) * 1e3
+    mb = os.path.getsize(os.path.join(ckdir, f"step_{RESUME_HALT}.npz")) / 1e6
+    # The child shares the card: hand it the memory this process holds
+    # cached.
+    torch.cuda.empty_cache()
+    t_hand = time.perf_counter()
+    train_proc.stdin.write(ckdir + "\n")
+    train_proc.stdin.flush()
+    resumed = None
+    for line in train_proc.stdout:
+        if line.startswith(RESUMED_MARK):
+            resumed = json.loads(line[len(RESUMED_MARK):])
+            break
+    child_s = time.perf_counter() - t_hand
+    if resumed is None:
+        train_proc.wait(timeout=60)
+        child_err.seek(0)
+        check(False, f"train resume: the child exited "
+              f"{train_proc.returncode} before its last step:\n"
+              f"{child_err.read()[-3000:]}")
+    check(halted == straight[:RESUME_HALT]
+          and resumed["losses"] == straight[RESUME_HALT:],
+          f"train resume: losses {halted} + {resumed['losses']} against "
+          f"{straight}")
+    check(resumed["params_sha256"] == want_sha,
+          "train resume: the resumed run's final params differ from the "
+          "straight run's")
     deterministic(torch, False)
-    del restored, final
     print(f"train resume: {cfg2.name} at full width cut to {RESUME_LAYERS} "
           f"layers, deterministic: a straight {RESUME_STEPS}-step run "
-          f"({straight_s:.1f} s) against one halted at {RESUME_HALT} "
-          f"(checkpoint {mb:.1f} MB, written in {write_ms:.0f} ms from the "
-          f"card: device to host, npz, fsync, rename) and resumed in a child "
-          f"process ({child_s:.1f} s): loss streams and final params bitwise "
-          f"equal; the phase took {time.perf_counter() - phase_t0:.1f} s "
-          f"[{card}]")
+          f"({straight_s:.1f} s) against one "
+          f"halted at {RESUME_HALT} (checkpoint {mb:.1f} MB, written in "
+          f"{write_ms:.0f} ms from the card: device to host, npz, fsync, "
+          f"rename) and resumed in a child process (its last step "
+          f"{child_s:.1f} s after it was handed the directory: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in resumed["times"].items())
+          + f"): loss streams bitwise equal, final params' sha256 equal; "
+          f"the phase took {time.perf_counter() - phase_t0:.1f} s [{card}]")
     torch.cuda.empty_cache()
-    return {"flat_sgd": flat_launches}, k2_train
+    resume = {"proc": train_proc, "err": child_err, "tmp": tmp,
+              "ckdir": ckdir, "t": time.perf_counter()}
+    return resume
+
+
+def finish_resume(resume, card):
+    """Wait for the train phase's resume child to write the driver's
+    final checkpoint and exit 0."""
+    proc = resume["proc"]
+    t0 = time.perf_counter()
+    try:
+        proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    waited = time.perf_counter() - t0
+    err = resume["err"]
+    err.seek(0)
+    check(proc.returncode == 0, f"train resume: the child exited "
+          f"{proc.returncode}:\n{err.read()[-3000:]}")
+    err.close()
+    path = os.path.join(resume["ckdir"], f"step_{RESUME_STEPS}.npz")
+    check(os.path.exists(path), f"train resume: no final checkpoint {path}")
+    with open(os.path.join(resume["ckdir"], "child_times.json")) as f:
+        times = json.load(f)
+    mb = os.path.getsize(path) / 1e6
+    resume["tmp"].cleanup()
+    print(f"train resume: the child wrote the driver's final checkpoint "
+          f"({mb:.1f} MB) in {times['final_write_s']:.1f} s and exited 0 "
+          f"while the phases after the train phase ran "
+          f"({time.perf_counter() - resume['t']:.1f} s of them); this "
+          f"process then waited {waited:.1f} s for it [{card}]")
 
 
 # Recurrent phase: zamba2-2.7b and xlstm-1.3b at full width, each with
@@ -3450,6 +4123,8 @@ def main():
         return serve_child(sys.argv[2])
     if sys.argv[1:2] == ["--train-child"]:
         return train_child(sys.argv[2])
+    if sys.argv[1:2] == ["--dist-child"]:
+        return dist_child(sys.argv[2])
     rt = load_port()
     from repro_torch.kernels import _build
     from repro_torch.kernels.aggregate import ops, ref
@@ -3490,17 +4165,16 @@ def main():
         seconds[name] = round(time.perf_counter() - t0, 1)
         return out
 
-    def build():
-        with ThreadPoolExecutor(max_workers=3) as pool:
-            for f in [pool.submit(m.load) for m in (ops, fa_ops, ssm_ops)]:
-                f.result()
-
-    phase("build", build)
-    print(f"build: aggregate, flash-attention and scan kernels in "
-          f"{seconds['build']:.1f} s (one nvcc process for each source, all "
+    # One nvcc process for each source, all started at once. The phases
+    # up to the dist phase need only the aggregate kernels, so the
+    # flash-attention and scan sources go on building beside them.
+    pool = ThreadPoolExecutor(max_workers=3)
+    builds = [pool.submit(m.load) for m in (ops, fa_ops, ssm_ops)]
+    phase("build", builds[0].result)
+    print(f"build: the aggregate kernels in {seconds['build']:.1f} s; the "
+          f"flash-attention and scan kernels build on beside the phases up "
+          f"to the dist phase (one nvcc process for each source, all started "
           f"at once)")
-    k3_build_report(_build, fa_ops)
-    k4_build_report(torch, _build, ssm_ops)
 
     errs, timing = phase("kernel", kernel_phase, torch, ops, ref, peaks)
     launches, fig1_data = phase("fig1", fig1_phase, torch, rt)
@@ -3508,17 +4182,32 @@ def main():
     fault_counts = phase("faults", faults_phase, torch, rt, fig1_data, card)
     serve_counts = phase("serve", serve_phase, torch, rt, fig1_data, card)
     del fig1_data
+    dist_counts, dist_shapes = phase("dist", dist_phase, torch, rt, ops, ref,
+                                     peaks, card)
+
+    def build_rest():
+        for f in builds[1:]:
+            f.result()
+        pool.shutdown()
+
+    phase("build wait", build_rest)
+    print(f"build: the flash-attention and scan kernels ready "
+          f"{time.perf_counter() - T0:.1f} s after the script started "
+          f"(waited {seconds['build wait']:.1f} s for them)")
+    k3_build_report(_build, fa_ops)
+    k4_build_report(torch, _build, ssm_ops)
     k3_err, k3_timing = phase("k3", k3_phase, torch, fa_ops, fa_ref, peaks,
                               sm_clock_hz)
     launches["gla_scan"], k4_err, k4_timing = phase(
         "k4", k4_phase, torch, ssm_ops, ssm_ref, chunked_gla, peaks)
     launches["flash_attention"], lm_params = phase("lm", lm_phase, torch, rt,
                                                    fa_ops)
-    train_counts, k2_train = phase("train", train_phase, torch, rt, lm_params,
-                                   ops, ref, peaks, card)
+    train_counts, k2_train, resume = phase("train", train_phase, torch, rt,
+                                           lm_params, ops, ref, peaks, card)
     del lm_params
     rec_counts = phase("rec", recurrent_phase, torch, rt, fa_ops, ssm_ops,
                        card)
+    phase("resume end", finish_resume, resume, card)
     zoo_counts = phase("zoo", zoo_phase, torch, rt, fa_ops, card)
     mm_counts = phase("mm", mm_phase, torch, rt, fa_ops, card)
     train_counts.update(phase("zoo train", zoo_train_phase, torch, rt, ops,
@@ -3556,6 +4245,14 @@ def main():
                 label: c[name] for label, c in fault_counts.items()}
             kernels[-1]["serve_launches"] = {
                 label: c[name] for label, c in serve_counts.items()}
+            # The dist phase's ranks, each counted from 0 before each
+            # combination's first run, and the kernel at a shard's rows.
+            kernels[-1]["dist_launches"] = {
+                rank: {tag: c[name] for tag, c in combos.items()}
+                for rank, combos in dist_counts.items()}
+            kernels[-1]["sharded_shapes"] = {
+                label: t for label, t in dist_shapes.items()
+                if label.startswith(key)}
         if key == "k2":
             # The train phases' flat SGD route: one launch a step on a
             # one-row stack of a model's P parameters (stablelm's under

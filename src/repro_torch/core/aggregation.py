@@ -20,19 +20,26 @@ therefore the same vector as the JAX package's, element by element.
 SPMD LM train step (:func:`repro_torch.core.trainer.
 build_energy_train_step`), as a coefficient on each example's loss.
 
-The client-sharded half (``reduce_flat_client_sharded``,
-``_cross_shard_sum``, the sharded branch of
-:func:`fused_flat_sgd_update`) waits for ROADMAP Queue 1 step 7.
+The client-sharded half (DESIGN.md §8–9): under an active
+:func:`repro_torch.core.energy.client_sharding` context each rank holds
+the ``(n_local, P)`` rows of its shard. :func:`make_flat_grads_fn` emits
+those rows; :func:`reduce_flat_client_sharded` and the sharded branch of
+:func:`fused_flat_sgd_update` reduce across the shard's process group
+and leave the server update replicated, each in one of the
+:func:`parse_reduction` modes.
 """
 
 from __future__ import annotations
 
+import inspect
 import math
 from typing import Any, NamedTuple
 
 import torch
 
 from repro_torch._tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from repro_torch.core.energy import (client_shard, shard_all_gather,
+                                     shard_all_reduce)
 from repro_torch.core.scheduling import Decision
 from repro_torch.kernels.aggregate import ops as agg_ops
 from repro_torch.optim.optimizers import SGDState, resolve_lr
@@ -41,6 +48,32 @@ from repro_torch.optim.optimizers import SGDState, resolve_lr
 def client_weights(p: torch.Tensor, decision: Decision) -> torch.Tensor:
     """ω_i = p_i · mask_i · scale_i — the per-client aggregation weight."""
     return p * decision.mask * decision.scale
+
+
+# ----------------------------------------------------- reduction grammar
+
+_REDUCTION_MODES = ("gather", "psum", "fused")
+
+
+def parse_reduction(reduction: str) -> tuple[str, Any]:
+    """Parse a cross-shard reduction string → ``(mode, wire_dtype)``.
+
+    Grammar (DESIGN.md §9): ``gather | psum | psum_bf16 | fused |
+    fused_bf16``. The ``_bf16`` suffix quantizes the ``(P,)`` partial
+    sums on the wire only: each shard's partial is cast to bf16,
+    gathered, and summed in f32. ``gather`` is the bit-for-bit oracle
+    and takes no wire dtype.
+    """
+    mode, _, wire = reduction.partition("_")
+    if mode not in _REDUCTION_MODES or wire not in ("", "bf16"):
+        raise ValueError(
+            f"reduction must be one of gather, psum[_bf16], fused[_bf16]; "
+            f"got {reduction!r}")
+    if wire and mode == "gather":
+        raise ValueError(
+            "gather is the bitwise oracle and takes no wire dtype; "
+            f"got {reduction!r}")
+    return mode, (torch.bfloat16 if wire else None)
 
 
 def _mask_rows(leaf: torch.Tensor, mask) -> torch.Tensor:
@@ -143,6 +176,20 @@ def unravel_pytree(vec: torch.Tensor, spec: RavelSpec):
 
 # ------------------------------------------------ flat grads_fn boundary
 
+def accepts_clients_kwarg(grads_fn) -> bool:
+    """True if ``grads_fn`` takes a ``clients`` keyword — the client-axis
+    sharding protocol (DESIGN.md §8): a client-aware grads_fn is called
+    with ``clients=(n_local,) int64`` global client indices and computes
+    only those rows. Only an explicitly named ``clients`` parameter opts
+    in; a bare ``**kwargs`` does not, since a grads_fn that ignores
+    ``clients`` would return full-population rows."""
+    try:
+        sig = inspect.signature(grads_fn)
+    except (TypeError, ValueError):
+        return False
+    return "clients" in sig.parameters
+
+
 def make_flat_grads_fn(grads_fn, spec: RavelSpec, n_clients: int):
     """Wrap ``grads_fn`` into an emitter of the flat ``(N, P)`` buffer.
 
@@ -150,11 +197,20 @@ def make_flat_grads_fn(grads_fn, spec: RavelSpec, n_clients: int):
     parameter tree (raveled here; a mixed-dtype gradient tree is cast to
     the parameter dtype first) or one ``(N, ...)`` tensor that is flat up
     to a reshape.
-    """
 
-    def flatten(stacked):
+    Under an active client-sharding context the wrapper returns this
+    shard's ``(n_local, P)`` rows: a client-aware grads_fn
+    (:func:`accepts_clients_kwarg`) is called with the shard's global
+    client indices; a plain one is called in full, and its rows are
+    sliced under ``psum`` / ``fused`` but handed over whole under
+    ``gather``, where every rank already holds the same buffer
+    (:func:`reduce_flat_client_sharded` then gathers only the weights).
+    """
+    accepts = accepts_clients_kwarg(grads_fn)
+
+    def flatten(stacked, n_rows):
         if isinstance(stacked, torch.Tensor):
-            g = stacked.reshape(n_clients, -1)
+            g = stacked.reshape(n_rows, -1)
             if g.shape[1] != spec.total:
                 raise ValueError(
                     f"flat grads_fn output has {g.shape[1]} parameters per "
@@ -173,7 +229,19 @@ def make_flat_grads_fn(grads_fn, spec: RavelSpec, n_clients: int):
         return ravel_stacked(stacked, gspec)
 
     def flat_grads(params, key, t):
-        return flatten(grads_fn(params, key, t))
+        shard = client_shard()
+        if shard is None:
+            return flatten(grads_fn(params, key, t), n_clients)
+        n_local = n_clients // shard.shards
+        off = shard.index * n_local
+        if accepts:
+            idx = off + torch.arange(n_local, dtype=torch.int64,
+                                     device=key.device)
+            return flatten(grads_fn(params, key, t, clients=idx), n_local)
+        full = flatten(grads_fn(params, key, t), n_clients)
+        if parse_reduction(shard.reduction)[0] == "gather":
+            return full
+        return full[off:off + n_local]
 
     return flat_grads
 
@@ -215,9 +283,75 @@ def reduce_flat(g: torch.Tensor, weights: torch.Tensor, *,
     return out.to(od)
 
 
+def _cross_shard_sum(partial: torch.Tensor, shard, wire_dtype=None
+                     ) -> torch.Tensor:
+    """Sum ``(P,)`` partials across ``shard``'s ranks.
+
+    ``wire_dtype=None`` is one f32 ``all_reduce``. With a wire dtype
+    (bf16) each rank's partial is quantized once, the parts are
+    gathered, and the sum runs in f32 or wider on every rank: one
+    rounding per shard, whatever the shard count, where an all-reduce of
+    bf16 operands would round at every add.
+    """
+    if wire_dtype is None:
+        return shard_all_reduce(partial, shard)
+    acc = _accum_dtype(partial.dtype)
+    wired = shard_all_gather(partial.to(wire_dtype)[None], shard)
+    return torch.sum(wired.to(acc), dim=0)
+
+
+def reduce_flat_client_sharded(g: torch.Tensor, weights: torch.Tensor, *,
+                               shard, use_kernel: bool = False,
+                               out_dtype=None, mask=None
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Client-sharded flat reduction: this rank's ``(n_local, P)`` rows →
+    the replicated ``((P,), weight_sum)`` across ``shard``'s ranks.
+
+    * ``gather`` — gather the weights and mask (and the rows, unless
+      ``g`` is already at full width, as a plain grads_fn gives it) and
+      run the unsharded reduction on every rank: bit for bit the
+      one-rank result.
+    * ``psum`` — one local reduction over this rank's rows (kernel K1
+      under ``use_kernel``, through
+      :func:`~repro_torch.kernels.aggregate.ops.
+      masked_scaled_aggregate_sharded`) and a ``(P,)`` f32 sum across
+      the ranks, cast to ``out_dtype`` only after it; the client sum is
+      reassociated across shards (f32 tolerance). ``psum_bf16``
+      quantizes the partials on the wire (:func:`_cross_shard_sum`).
+
+    ``fused`` is refused here: it owns the parameter step as well and
+    lives in :func:`fused_flat_sgd_update`.
+    """
+    mode, wire_dtype = parse_reduction(shard.reduction)
+    if mode == "fused":
+        raise ValueError(
+            "reduction 'fused' bundles the parameter update; use "
+            "fused_flat_sgd_update (the trainer routes it)")
+    if mode == "gather":
+        weights = shard_all_gather(weights, shard)
+        if mask is not None:
+            mask = shard_all_gather(mask, shard)
+        if g.shape[0] != weights.shape[0]:
+            g = shard_all_gather(g, shard)
+        out = reduce_flat(g, weights, use_kernel=use_kernel,
+                          out_dtype=out_dtype, mask=mask)
+        return out, torch.sum(weights)
+    od = g.dtype if out_dtype is None else out_dtype
+    if use_kernel and wire_dtype is None:
+        out = agg_ops.masked_scaled_aggregate_sharded(
+            g, weights.to(torch.float32), shard=shard, out_dtype=od,
+            mask=mask)
+    else:
+        partial = reduce_flat(g, weights, use_kernel=use_kernel,
+                              out_dtype=_accum_dtype(g.dtype), mask=mask)
+        out = _cross_shard_sum(partial, shard, wire_dtype).to(od)
+    return out, shard_all_reduce(torch.sum(weights), shard)
+
+
 def fused_flat_sgd_update(g: torch.Tensor, weights: torch.Tensor,
                           params: torch.Tensor, opt_state, optimizer, *,
-                          mask=None, use_kernel: bool = False, shard=None):
+                          mask=None, use_kernel: bool = False, shard=None,
+                          wire_dtype=None):
     """Fused reduce-and-update (DESIGN.md §9): mask select, per-client
     scaling, the ``(N, P) → (P,)`` reduction and the flat SGD step in one
     pass — one launch of kernel K2 when ``use_kernel``, a matvec and an
@@ -225,24 +359,40 @@ def fused_flat_sgd_update(g: torch.Tensor, weights: torch.Tensor,
 
     Only for a tagged plain-SGD optimizer (``kind == "sgd"``): the step
     is ``w − η·(ω_sel @ g)``, which momentum, Adam or clipping are not.
+
+    Sharded (``shard`` a :class:`~repro_torch.core.energy.ClientShard`):
+    each rank's launch emits its local update delta ``−η·(ω_sel @
+    g_local)`` (K2's delta form, ``params=None``); SGD is linear in the
+    gradient, so ``params + Σ_ranks delta`` is the update of the global
+    reduction. The collective stays ``(P,)``-sized
+    (:func:`_cross_shard_sum`; ``wire_dtype`` quantizes it to bf16 on
+    the wire), and the replicated parameters take the summed delta in
+    f32 before the cast back.
     """
     if getattr(optimizer, "kind", "") != "sgd":
         raise ValueError(
             "fused_flat_sgd_update requires a plain sgd() optimizer "
             f"(kind='sgd'); got kind={getattr(optimizer, 'kind', '')!r}")
-    if shard is not None:
-        raise NotImplementedError(
-            "client-sharded fused update: ROADMAP Queue 1 step 7")
     eta = resolve_lr(optimizer.hyper, opt_state.step)
     new_state = SGDState(step=opt_state.step + 1)
     w32 = weights.to(torch.float32)
+    if shard is None:
+        if use_kernel:
+            new_params = agg_ops.masked_scaled_aggregate_update(
+                g, w32, eta, params, mask)
+        else:
+            agg = reduce_flat(g, weights, out_dtype=torch.float32, mask=mask)
+            new_params = (params.to(torch.float32) - eta * agg).to(params.dtype)
+        return new_params, new_state, torch.sum(weights)
     if use_kernel:
-        new_params = agg_ops.masked_scaled_aggregate_update(
-            g, w32, eta, params, mask)
+        delta = agg_ops.masked_scaled_aggregate_update(g, w32, eta, None,
+                                                       mask)
     else:
         agg = reduce_flat(g, weights, out_dtype=torch.float32, mask=mask)
-        new_params = (params.to(torch.float32) - eta * agg).to(params.dtype)
-    return new_params, new_state, torch.sum(weights)
+        delta = -eta * agg
+    delta = _cross_shard_sum(delta, shard, wire_dtype)
+    new_params = (params.to(torch.float32) + delta).to(params.dtype)
+    return new_params, new_state, shard_all_reduce(torch.sum(weights), shard)
 
 
 def per_example_coefficients(client_ids: torch.Tensor, weights: torch.Tensor,

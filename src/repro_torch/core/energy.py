@@ -17,18 +17,27 @@ bits as the JAX package.
 
 A process keeps its per-client tables as CPU tensors when built;
 :meth:`to` returns a copy on another device, which is how
-:class:`repro_torch.core.trainer.ClientSimulator` places it. The JAX
-package's ``client_sharding`` context is not ported yet (ROADMAP Queue 1
-item 10).
+:class:`repro_torch.core.trainer.ClientSimulator` places it.
+
+**Client-axis sharding** (DESIGN.md §8, ROADMAP Queue 1 step 7): inside
+a :func:`client_sharding` context this rank holds rows ``index·n_local
+…`` of the population, every per-client draw folds in the *global*
+client index, and the population-wide reductions
+(:func:`population_min`, the aggregation's reduce and weight sum) become
+collectives over the row's process group (:func:`shard_all_reduce`,
+:func:`shard_all_gather`). The context is consulted at each step, where
+the JAX package reads it once at trace time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import random as trandom
 
@@ -71,13 +80,121 @@ class _Process:
         return dataclasses.replace(self, **moved)
 
 
+# ------------------------------------------------- client-axis sharding
+
+class ClientShard(NamedTuple):
+    """This rank's place on an active client axis.
+
+    axis_name : the mesh axis the client dimension is sharded over.
+    shards    : ranks along that axis.
+    reduction : ``gather`` (gather the weights, replicate the exact
+                unsharded reduction: bit for bit), ``psum[_bf16]`` (a
+                local reduction and one (P,) collective: f32
+                reassociation tolerance) or ``fused[_bf16]`` (the psum
+                wiring with the SGD step in the local launch of kernel
+                K2). ``_bf16`` quantizes the collective's payload to
+                bf16 on the wire with f32 accumulation. DESIGN.md §8–9.
+    index     : this rank's coordinate along the axis: it holds rows
+                ``index·n_local … (index+1)·n_local − 1``.
+    group     : the process group of the ranks along the axis (this
+                rank's cell row); None when ``shards`` is 1.
+    """
+
+    axis_name: str
+    shards: int
+    reduction: str = "gather"
+    index: int = 0
+    group: Any = None
+
+
+_CLIENT_SHARD: list[ClientShard] = []
+
+
+@contextlib.contextmanager
+def client_sharding(axis_name: str, shards: int, reduction: str = "gather",
+                    *, index: int = 0, group=None):
+    """Activate a client-axis sharding context for the enclosed run.
+
+    Inside the context every per-client draw (:func:`client_keys` and
+    friends) folds in the global client index — shard-local row ``i``
+    becomes ``index·n_local + i`` — and population-global reductions
+    (:func:`population_min`; the aggregation reduce and weight sum via
+    :func:`repro_torch.core.aggregation.reduce_flat_client_sharded`)
+    become collectives over ``group``.
+    """
+    # Validated against the shared grammar (lazy import: aggregation
+    # imports this module back for client_shard()).
+    from repro_torch.core.aggregation import parse_reduction
+
+    parse_reduction(reduction)
+    if not 0 <= int(index) < int(shards):
+        raise ValueError(f"shard index {index} outside [0, {shards})")
+    _CLIENT_SHARD.append(ClientShard(axis_name, int(shards), reduction,
+                                     int(index), group))
+    try:
+        yield
+    finally:
+        _CLIENT_SHARD.pop()
+
+
+def client_shard() -> ClientShard | None:
+    """The innermost active client-sharding context, or None."""
+    return _CLIENT_SHARD[-1] if _CLIENT_SHARD else None
+
+
+def _client_offset(n_local: int) -> int:
+    """Global index of this shard's row 0 (0 when unsharded)."""
+    shard = client_shard()
+    return 0 if shard is None else shard.index * n_local
+
+
+def shard_all_reduce(x: torch.Tensor, shard: ClientShard,
+                     op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``op`` of ``x`` over the ranks of ``shard``'s axis, as a new tensor
+    (``x`` itself is left as it was). Every rank gets the same bits: the
+    backends reduce each element once and send the result around."""
+    out = x.clone()
+    if shard.shards > 1:
+        dist.all_reduce(out, op=op, group=shard.group)
+    return out
+
+
+def shard_all_gather(x: torch.Tensor, shard: ClientShard,
+                     dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` along ``shard``'s axis, concatenated along
+    ``dim`` in shard order (the global row order). Both backends gather
+    CUDA tensors in place: NCCL, and gloo (which stages them through the
+    host itself) when ranks share a card."""
+    if shard.shards == 1:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(shard.shards)]
+    dist.all_gather(parts, x, group=shard.group)
+    return torch.cat(parts, dim=dim)
+
+
+def population_min(x: torch.Tensor) -> torch.Tensor:
+    """min over the client axis. Exact (min is associative), so the
+    sharded value is bitwise the unsharded one."""
+    m = torch.min(x)
+    shard = client_shard()
+    if shard is None:
+        return m
+    return shard_all_reduce(m, shard, dist.ReduceOp.MIN)
+
+
 def client_keys(key, n_clients: int) -> torch.Tensor:
     """(N, 2) per-client keys, ``fold_in`` of the client index.
 
     They depend only on ``(key, i)``, not on ``n_clients``, which is
     what makes ragged-population padding bit-exact (DESIGN.md §7).
+    Under an active :func:`client_sharding` context the folded index is
+    the global one (shard offset + local row), so shard-local row ``i``
+    draws exactly the bits global client ``offset + i`` draws in the
+    unsharded run (DESIGN.md §8).
     """
-    idx = torch.arange(n_clients, dtype=torch.int64, device=key.device)
+    idx = _client_offset(n_clients) + torch.arange(
+        n_clients, dtype=torch.int64, device=key.device)
     return trandom.fold_in(key, idx)
 
 

@@ -19,8 +19,8 @@ Schedulers: ``EHAppointmentScheduler`` (Algorithm 1),
 ``scaled=False``), ``WaitForAllScheduler`` (Benchmark 2),
 ``AlwaysOnScheduler`` (the full-participation oracle) and
 ``BatteryAdaptiveScheduler`` (energy accumulation with adaptive
-inverse-rate scaling). The JAX package's ``shard_scheduler`` waits for
-client sharding (ROADMAP Queue 1 item 10).
+inverse-rate scaling). :func:`shard_scheduler` gives a scheduler's view
+of one client-axis shard (DESIGN.md §8, ROADMAP Queue 1 step 7).
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.energy import Arrivals, _host, client_randint
+from repro_torch.core.energy import (Arrivals, _host, client_randint,
+                                     population_min)
 
 
 class Decision(NamedTuple):
@@ -128,9 +129,11 @@ class WaitForAllScheduler:
         battery = torch.clamp(state.battery + arrivals.energy, max=1.0)
         # The all-full barrier is over active clients only: a padded row
         # (which never harvests) must not block the whole population.
+        # population_min is a MIN across the client shards when the axis
+        # is sharded; min is exact, so the barrier fires on the same step.
         ready = battery if active is None else torch.where(
             active > 0, battery, torch.ones_like(battery))
-        fire = torch.min(ready) >= 1.0
+        fire = population_min(ready) >= 1.0
         mask = torch.where(fire, torch.ones_like(battery),
                            torch.zeros_like(battery))
         mask = _mask_decision(mask, active)
@@ -219,6 +222,22 @@ def pad_scheduler(scheduler, n_total: int):
         raise ValueError(
             f"cannot pad {scheduler.n_clients} clients down to {n_total}")
     return dataclasses.replace(scheduler, n_clients=int(n_total))
+
+
+def shard_scheduler(scheduler, n_local: int):
+    """Scheduler view over one client-axis shard of ``n_local`` rows.
+
+    The built-ins hold only scalar hyperparameters and size their
+    per-client state from ``n_clients`` in ``init``, so narrowing that
+    width is all they need. A scheduler with per-client tensor fields
+    defines ``shard_clients(n_local)`` returning its local view; the
+    placement layer slices such fields by the leaf-shape rule
+    (:func:`repro_torch.experiments.placement.client_leaf_specs`).
+    """
+    method = getattr(scheduler, "shard_clients", None)
+    if method is not None:
+        return method(n_local)
+    return dataclasses.replace(scheduler, n_clients=int(n_local))
 
 
 def _strict(ctor, name, n, kw, **fixed):

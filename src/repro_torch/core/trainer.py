@@ -31,9 +31,20 @@ to clients, the paper's weighting as a coefficient on each example's
 loss (:func:`~repro_torch.core.aggregation.per_example_coefficients`),
 gradients by ``torch.autograd``.
 
+**Client-axis sharding** (DESIGN.md §8): inside a
+:func:`repro_torch.core.energy.client_sharding` context this rank runs
+its shard of the population — its scheduler and energy rows, its
+``p`` / ``active_mask`` rows, its ``(n_local, P)`` gradient rows — and
+the step's one collective runs on the shard's process group
+(:func:`~repro_torch.core.aggregation.reduce_flat_client_sharded`, or
+the sharded :func:`~repro_torch.core.aggregation.fused_flat_sgd_update`
+under ``fused``). Params and optimizer state stay replicated, and the
+participation history is gathered back to full width at the end of a
+run. Faults are refused under a clients axis, as in the JAX package.
+
 Not ported yet: the legacy per-leaf carry (``flat=False``, and
 mixed-dtype parameters; ROADMAP Queue 1 step 5), refused with
-``NotImplementedError``; client-axis sharding (step 7).
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,9 +57,19 @@ from repro_torch import random as trandom
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from repro_torch.core import aggregation
+from repro_torch.core.energy import client_shard, shard_all_gather
 from repro_torch.core.faults import FAULT_SALT
 from repro_torch.core.scheduling import Decision
 from repro_torch.optim import Optimizer, apply_updates
+
+
+FAULTS_UNDER_CLIENTS = (
+    "fault injection is not supported under a clients mesh axis "
+    "(DESIGN.md §10) — use a cells-only mesh or drop the fault component")
+FUSED_NEEDS_SGD = (
+    "reduction 'fused' bundles the SGD parameter update into the reduction "
+    "kernel and needs a plain sgd() optimizer (kind='sgd'); use 'psum' for "
+    "stateful/clipped optimizers")
 
 
 class SimCarry(NamedTuple):
@@ -189,6 +210,9 @@ class ClientSimulator:
         ``active_mask`` is the (N,) 0/1 existing-client mask (DESIGN.md
         §7); both are f32 tensors on the simulator's device or None.
         ``faults`` is a placed fault component or None."""
+        shard = client_shard()
+        if shard is not None and faults is not None:
+            raise ValueError(FAULTS_UNDER_CLIENTS)
         p = self.p if p is None else p
         key, k_arr, k_sched, k_grad = trandom.split(carry.key, 4).unbind(0)
         energy_state, arr = energy.arrivals(carry.energy_state, carry.t, k_arr)
@@ -212,7 +236,22 @@ class ClientSimulator:
             if keep is not None:
                 weights = weights * keep
                 row_mask = aggregation.compose_masks(active_mask, keep)
-        if self.use_kernel and getattr(self.optimizer, "kind", "") == "sgd":
+        fusable = getattr(self.optimizer, "kind", "") == "sgd"
+        agg = params = wsum = None
+        if shard is not None:
+            mode, wire = aggregation.parse_reduction(shard.reduction)
+            if mode == "fused":
+                if not fusable:
+                    raise ValueError(FUSED_NEEDS_SGD)
+                params, opt_state, wsum = aggregation.fused_flat_sgd_update(
+                    g, weights, carry.params, carry.opt_state,
+                    self.optimizer, mask=row_mask,
+                    use_kernel=self.use_kernel, shard=shard, wire_dtype=wire)
+            else:
+                agg, wsum = aggregation.reduce_flat_client_sharded(
+                    g, weights, shard=shard, use_kernel=self.use_kernel,
+                    mask=row_mask)
+        elif self.use_kernel and fusable:
             # One launch of K2: the same f32 op sequence as
             # reduce → −η·agg → add.
             params, opt_state, _ = aggregation.fused_flat_sgd_update(
@@ -222,6 +261,7 @@ class ClientSimulator:
             agg = aggregation.reduce_flat(g, weights,
                                           use_kernel=self.use_kernel,
                                           mask=row_mask)
+        if params is None:
             updates, opt_state = self.optimizer.update(
                 agg, carry.opt_state, carry.params)
             params = apply_updates(carry.params, updates)
@@ -231,7 +271,7 @@ class ClientSimulator:
         out = {
             "loss": loss,
             "participation": dec.mask,
-            "weight_sum": torch.sum(weights),
+            "weight_sum": torch.sum(weights) if wsum is None else wsum,
             "finite": torch.all(torch.isfinite(params)),
         }
         new_carry = SimCarry(params=params, opt_state=opt_state,
@@ -250,11 +290,18 @@ class ClientSimulator:
 
     @staticmethod
     def _history(outs) -> SimHistory:
+        """The steps' outputs stacked; under a client shard, each step's
+        participation holds this rank's rows, and the history's is
+        gathered back to the full client axis (T, N)."""
         if not outs:
             raise ValueError("a run needs num_steps >= 1")
         stack = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        participation = stack["participation"]
+        shard = client_shard()
+        if shard is not None:
+            participation = shard_all_gather(participation, shard, dim=-1)
         return SimHistory(loss=stack["loss"],
-                          participation=stack["participation"],
+                          participation=participation,
                           weight_sum=stack["weight_sum"],
                           finite=stack["finite"])
 

@@ -26,8 +26,10 @@ Port of ``repro.experiments`` on one device:
   (:func:`make_group_runner`, :func:`make_chunk_runner`).
 * :mod:`repro_torch.experiments.manifest` — the JSON wire format of
   studies and execution configs, shared with the JAX package.
-
-Not ported yet: placement across cards (ROADMAP Queue 1 step 7).
+* :mod:`repro_torch.experiments.placement` — rank meshes for
+  ``mesh=``-sharded execution across ``torch.distributed`` ranks: a
+  group's cells split over cell rows, each cell's population split over
+  a ``clients`` axis (DESIGN.md §5, §8).
 """
 
 from repro_torch.experiments.axes import (
@@ -72,6 +74,12 @@ from repro_torch.experiments.manifest import (
     study_from_manifest,
     study_to_manifest,
 )
+from repro_torch.experiments.placement import (
+    make_cell_mesh,
+    make_client_mesh,
+    make_grid_mesh,
+    run_client_sharded,
+)
 from repro_torch.experiments.results import GridResult, default_metric, seed_stats
 from repro_torch.experiments.scenario import (
     ARRIVAL_KINDS,
@@ -106,12 +114,14 @@ __all__ = [
     "execute_cells_resumable", "execution_config_from_manifest",
     "execution_config_to_manifest",
     "get_axis", "get_grid", "get_study", "grid_names", "grid_summary",
-    "last_downgrades", "make_chunk_runner", "make_energy_process",
+    "last_downgrades", "make_cell_mesh", "make_chunk_runner",
+    "make_client_mesh", "make_energy_process", "make_grid_mesh",
     "make_group_runner", "population_mask",
     "register_axis", "register_grid", "register_study",
     "register_taus_profile", "request_from_manifest", "request_to_manifest",
     "resolve_structure_groups",
-    "resolve_taus_profile", "run_grid", "run_grid_sequential",
+    "resolve_taus_profile", "run_client_sharded", "run_grid",
+    "run_grid_sequential",
     "scenario_grid", "seed_stats", "structure_fingerprint",
     "study_fingerprint", "study_from_manifest", "study_names",
     "study_to_manifest", "subpopulation_p",

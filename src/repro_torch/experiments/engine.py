@@ -50,10 +50,15 @@ first run of each batch signature it has not run before, the signature
 that makes the JAX package's jit trace again. So the serve layer's
 counters take the JAX package's values on the same traffic.
 
-Not ported yet, and refused with ``NotImplementedError``: ``mesh`` and
-device placement (ROADMAP Queue 1 step 7). A batched cell step (the
-cells of a group in one step) is a speed-up to be judged on a benchmark
-(ROADMAP, Housekeeping).
+**Placement across ranks** (``mesh=``, :mod:`repro_torch.experiments.
+placement`): a group's cells are split over the mesh's cell rows, and a
+``clients`` axis splits each cell's population over the ranks of its
+row, ``client_reduction`` choosing the cross-rank aggregation. With
+``degrade=True`` a group whose sharded run raises ``ValueError`` moves
+down :data:`_REDUCTION_LADDER` and, when the ladder is spent, back to
+one rank; each move is a :class:`DowngradeRecord`. A batched cell step
+(the cells of a group in one step) is a speed-up to be judged on a
+benchmark (ROADMAP, Housekeeping).
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import logging
 import os
 import threading
 from typing import Any, NamedTuple, Sequence
@@ -79,7 +85,9 @@ from repro_torch.core.faults import pad_faults
 from repro_torch.core.scheduling import pad_scheduler
 from repro_torch.core.trainer import ClientSimulator, SimHistory
 from repro_torch.experiments.results import host
-from repro_torch.experiments.scenario import Scenario, refuse
+from repro_torch.experiments.scenario import Scenario
+
+_LOG = logging.getLogger(__name__)
 
 
 class CellResult(NamedTuple):
@@ -311,11 +319,14 @@ def clear_cache() -> None:
 
     The JAX engine keeps compiled group executables (and the simulator
     and ``eval_fn`` closures they pin) in a process-global jit cache and
-    drops them here. The port compiles no group program, so it keeps no
-    such cache and this drops nothing; it stays so that callers of the
-    JAX API (``Study.clear_cache``, the theory bench) run unchanged.
-    The kernels' built libraries are per process and are kept.
+    drops them here. The port compiles no group program; what it drops
+    are the sharded runners' signatures, which pin their simulators
+    (:func:`repro_torch.experiments.placement.clear_cache`). The
+    kernels' built libraries are per process and are kept.
     """
+    from repro_torch.experiments import placement
+
+    placement.clear_cache()
 
 
 def _seed_keys(seeds, device):
@@ -353,15 +364,30 @@ def _resolve_sim(sim, grads_fn, p, optimizer, loss_fn, use_kernel, device):
 
 # ------------------------------------------------- graceful degradation
 
+#: Reduction fallback order (DESIGN.md §10): each step strips one
+#: requirement — fused kernel first, then the bf16 wire, then the psum
+#: collective — ending at ``gather``, the bitwise-oracle path with no
+#: precondition beyond a capacity the client axis divides.
+_REDUCTION_LADDER: dict[str, tuple[str, ...]] = {
+    "fused_bf16": ("psum_bf16", "psum", "gather"),
+    "fused": ("psum", "gather"),
+    "psum_bf16": ("psum", "gather"),
+    "psum": ("gather",),
+    "gather": (),
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class DowngradeRecord:
     """One structured graceful-degradation event (DESIGN.md §10).
 
-    The JAX package records these when a sharded group falls down its
-    reduction ladder or back to one device. The port runs on one device
-    and has no sharded path yet (ROADMAP Queue 1 step 7), so it records
-    none; the type and :func:`last_downgrades` keep the API.
+    ``stage`` is the ladder rung that moved: ``"reduction"`` (the
+    client cross-rank aggregation fell one step down
+    :data:`_REDUCTION_LADDER`) or ``"placement"`` (the sharded run was
+    abandoned for the one-rank path). ``group`` names the scenario cells
+    that were run again; ``error`` is the ValueError that moved them.
+    Every rank records the same events: the preconditions are checked
+    before any rank runs a step.
     """
 
     group: tuple[str, ...]
@@ -379,9 +405,18 @@ _LAST_DOWNGRADES: list[DowngradeRecord] = []
 
 def last_downgrades() -> tuple[DowngradeRecord, ...]:
     """Downgrade records from the most recent execution (reset at the
-    start of every :func:`execute_cells` call; always empty in the
-    port)."""
+    start of every :func:`execute_cells` call); empty means every group
+    ran at its requested placement and reduction."""
     return tuple(_LAST_DOWNGRADES)
+
+
+def _record_downgrade(group, stage, frm, to, err) -> DowngradeRecord:
+    rec = DowngradeRecord(group=tuple(group), stage=stage,
+                          from_value=str(frm), to_value=str(to),
+                          error=str(err))
+    _LAST_DOWNGRADES.append(rec)
+    _LOG.warning("degraded %s %s -> %s: %s", stage, frm, to, rec.to_json())
+    return rec
 
 
 def _run_cell(sim, key, params0, num_steps, scheduler, energy, faults, p,
@@ -576,17 +611,30 @@ def execute_cells(
     num_steps=..., eval_fn=..., eval_every=...)``, a
     :func:`make_group_runner` the cache may memoize, bound and evict.
     The runner runs the uncached path's code, so the results are the
-    same bits; the cache only counts (module docstring). ``mesh`` is
-    refused (ROADMAP Queue 1 step 7). ``client_reduction`` and
-    ``degrade`` only act on a mesh in the JAX package, so without one
-    they change nothing here either.
+    same bits; the cache only counts (module docstring).
+
+    ``mesh`` (a :class:`repro_torch.experiments.placement.Mesh` of more
+    than one rank) runs each group through
+    :func:`~repro_torch.experiments.placement.run_group_sharded`: cells
+    split over the cell rows, bitwise the one-rank run; a ``clients``
+    axis splits each cell's population over its row's ranks,
+    ``client_reduction`` selecting the aggregation — ``"psum"``
+    (default, f32 tolerance), ``"gather"`` (bitwise), ``"fused[_bf16]"``
+    or ``"psum_bf16"`` (DESIGN.md §9). Every rank gets every cell's
+    result. A one-rank mesh takes the unsharded path, bit for bit.
+    ``degrade=True`` arms the ladder (module docstring). The executable
+    cache serves the unsharded path only.
 
     Returns ``{scenario.name: CellResult}`` in input order.
     """
-    del client_reduction, degrade  # mesh-only options
     if mesh is not None:
-        refuse("mesh= (device placement across cards)", 7,
-               "experiments/placement.py")
+        from repro_torch.experiments import placement
+
+        if not isinstance(mesh, placement.Mesh):
+            raise TypeError(
+                f"mesh must be a repro_torch.experiments.placement.Mesh "
+                f"(make_cell_mesh / make_client_mesh / make_grid_mesh), "
+                f"got {type(mesh).__name__}")
     scenarios = list(scenarios)
     del _LAST_DOWNGRADES[:]
     names = check_unique_names(scenarios)
@@ -595,6 +643,8 @@ def execute_cells(
     _, keys = _seed_keys(seeds, sim.device)
 
     if sequential:
+        if mesh is not None:
+            raise ValueError("sequential execution does not take a mesh")
         results = {}
         for sc in scenarios:
             scheduler, energy = sc.build()
@@ -612,19 +662,49 @@ def execute_cells(
                                        n_cap)
         return results
 
+    sharded = mesh is not None and mesh.size > 1
     _, _, groups = resolve_structure_groups(scenarios, sim=sim)
     results: list[CellResult | None] = [None] * len(scenarios)
     for grp in groups:
         args = (grp.scheduler, grp.energy, grp.faults, grp.active, grp.p,
                 params0, keys)
-        if executable_cache is not None:
-            runner = executable_cache.group_runner(
-                (grp.key, grp.ragged), sim=sim, num_steps=num_steps,
-                eval_fn=eval_fn, eval_every=eval_every)
-            cells = runner(*args)
+
+        def run_one_rank(args=args, grp=grp):
+            if executable_cache is not None:
+                runner = executable_cache.group_runner(
+                    (grp.key, grp.ragged), sim=sim, num_steps=num_steps,
+                    eval_fn=eval_fn, eval_every=eval_every)
+                return runner(*args)
+            return _group_body(*args, sim=sim, num_steps=num_steps,
+                               eval_fn=eval_fn, eval_every=eval_every)
+
+        if sharded:
+            members = [names[i] for i in grp.members]
+            reduction = client_reduction
+            while True:
+                try:
+                    cells = placement.run_group_sharded(
+                        grp.scheduler, grp.energy, grp.active, grp.p,
+                        params0, keys, sim=sim, num_steps=num_steps,
+                        n_scenarios=len(grp.members), mesh=mesh,
+                        faults=grp.faults, eval_fn=eval_fn,
+                        eval_every=eval_every, reduction=reduction)
+                    break
+                except ValueError as e:
+                    if not degrade:
+                        raise
+                    lower = _REDUCTION_LADDER.get(reduction, ())
+                    if lower:
+                        _record_downgrade(members, "reduction", reduction,
+                                          lower[0], e)
+                        reduction = lower[0]
+                        continue
+                    _record_downgrade(members, "placement", "sharded",
+                                      "one rank", e)
+                    cells = run_one_rank()
+                    break
         else:
-            cells = _group_body(*args, sim=sim, num_steps=num_steps,
-                                eval_fn=eval_fn, eval_every=eval_every)
+            cells = run_one_rank()
         for idx, cell in zip(grp.members, cells):
             results[idx] = _finish(cell, scenarios[idx].n_clients, n_cap)
     return dict(zip(names, results))
@@ -654,8 +734,8 @@ def run_grid(
     ``s`` runs under ``PRNGKey(s)``, bit-identical to a standalone
     ``ClientSimulator.run(PRNGKey(s), ...)`` of the same cell. Pass a
     prebuilt ``sim`` (which brings its own device), or its ingredients
-    and ``device`` (None: the card). ``mesh`` is refused (ROADMAP Queue
-    1 step 7).
+    and ``device`` (None: the card). ``mesh`` places the cells across
+    ranks (:func:`execute_cells`).
 
     Returns ``{scenario.name: CellResult}`` in input order.
     """

@@ -39,13 +39,6 @@ def make_energy_process(kind: str, n_clients: int, horizon: int, taus=None,
     return make_arrivals(kind, n_clients, horizon, taus=taus, **kw)
 
 
-def refuse(what: str, step: int, item: str):
-    """Raise for a part of the experiments layer the port does not have
-    yet, naming the ROADMAP Queue 1 step that brings it."""
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 step {step}, {item})")
-
-
 @dataclasses.dataclass
 class Scenario:
     """One experiment-grid cell: scheduler × arrival process × population.

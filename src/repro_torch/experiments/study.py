@@ -30,10 +30,14 @@ Named studies (``fig1``, ``fig1_grid``, ``capacity_sweep``,
 grid registry — :func:`repro_torch.experiments.get_grid` resolves
 through it.
 
+``ExecutionConfig.mesh`` places the study across the ranks of a
+``torch.distributed`` process group (:mod:`repro_torch.experiments.
+placement`): cells split over cell rows, each cell's population split
+over a ``clients`` axis, every rank holding every result.
+
 ``Study`` and ``ExecutionConfig`` round-trip through JSON manifests
 (:mod:`repro_torch.experiments.manifest`), the wire format the JAX
-package shares. Not ported yet: ``ExecutionConfig.mesh`` (ROADMAP Queue
-1 step 7), which raises ``NotImplementedError``.
+package shares.
 """
 
 from __future__ import annotations
@@ -62,8 +66,11 @@ SIM_CACHE_SIZE = 8
 class ExecutionConfig:
     """How a study executes — everything that is not *what* to run.
 
-    mesh : device mesh for sharded execution; only None (one device) is
-        ported (ROADMAP Queue 1 step 7).
+    mesh : rank mesh for sharded execution: a 1-D cells mesh
+        (DESIGN.md §5), a 1-D ``clients`` mesh (within-cell client
+        sharding, DESIGN.md §8) or a 2-D ``(cells, clients)`` grid mesh
+        (:func:`repro_torch.experiments.placement.make_grid_mesh`); None
+        (or one rank) → the one-device path.
     eval_fn : optional (params) -> metric tree, evaluated every
         ``eval_every`` steps.
     eval_every : eval chunk length; 0 → one eval at the end when
@@ -71,8 +78,13 @@ class ExecutionConfig:
     sequential : pad per cell instead of per structure group (a
         full-capacity cell then runs unmasked whatever its group) — the
         JAX package's per-cell baseline, kept for cross-checks.
-    client_reduction, degrade : cross-shard aggregation and the
-        graceful-degradation ladder; they act only on a mesh.
+    client_reduction : cross-rank aggregation under a ``clients`` mesh
+        axis: ``"psum"`` (default, f32 tolerance), ``"gather"``
+        (bitwise), ``"fused"`` / ``"fused_bf16"`` / ``"psum_bf16"``
+        (DESIGN.md §9).
+    degrade : arm the graceful-degradation ladder (DESIGN.md §10): a
+        group whose sharded run raises ``ValueError`` retries one rung
+        down, then on one rank; recorded in ``GridResult.downgrades``.
     checkpoint_dir : directory for preemption-safe execution
         (:func:`~repro_torch.experiments.engine.execute_cells_resumable`):
         the study runs in checkpointed chunks and a killed run resumes

@@ -290,3 +290,19 @@ def masked_scaled_aggregate_update(g, w, eta, params=None, mask=None, *,
     _raise_on(rc, "masked_scaled_aggregate_update")
     _count("masked_scaled_aggregate_update")
     return out
+
+
+def masked_scaled_aggregate_sharded(g, w, *, shard, out_dtype=None, mask=None):
+    """K1 over client-sharded operands (DESIGN.md §8): this rank's local
+    ``(n_local, P)`` rows reduced into f32 (one K1 launch on a CUDA
+    tensor, the plain version on a CPU one), then a ``(P,)`` f32
+    all-reduce over ``shard``'s process group, and the cast to
+    ``out_dtype`` (default ``g.dtype``) only after it, so a low-precision
+    result never goes through the reduction. A shard whose rows are all
+    masked adds exact zeros and reads none of its rows.
+    """
+    from repro_torch.core.energy import shard_all_reduce
+
+    partial = masked_scaled_aggregate(g, w, out_dtype=torch.float32, mask=mask)
+    out = shard_all_reduce(partial, shard)
+    return out.to(g.dtype if out_dtype is None else out_dtype)

@@ -3,8 +3,9 @@
 Port of ``repro.models.moe``'s single-device path: ``init_moe`` key for
 key, and ``apply_moe`` with one data shard, which is what the JAX
 package runs off a mesh. Its expert-parallel path (``_local_moe``,
-``_apply_moe_shardmap``, ``_data_shards``) comes with placement across
-cards (ROADMAP Queue 1 step 7).
+``_apply_moe_shardmap``, ``_data_shards``: experts split over the
+cards) is ROADMAP Queue 1 step 7, part two; part one, studies placed
+across ranks, is :mod:`repro_torch.experiments.placement`.
 
 Dispatch is scatter/gather based, as in the JAX package: each (token, k)
 assignment gets its position among its expert's assignments, counted in

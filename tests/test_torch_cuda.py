@@ -38,6 +38,12 @@ output and its gradient against the upcast product (gradients bitwise);
 one reduced train step (adamw, and the flat sgd route through K2)
 against the CPU; remat on against off bitwise, deterministic.
 
+Two ranks sharing the card over gloo (a card each over NCCL on a
+machine of two) run the launcher's quadratic job through K1 and K2
+(``gather`` and the cells axis bitwise the one-process study, ``psum``
+and ``fused`` within ``rtol=1e-5, atol=1e-6``), and the last client
+shard, every row masked, gives exact zeros.
+
 K4 (the gated-linear-recurrence scan) against its plain sequential
 version on the same inputs: ``max|K4 − plain| ≤ 1e-4·max|plain|``, as in
 ``chip_smoke.py``; strided views bitwise equal to contiguous copies.
@@ -56,7 +62,10 @@ giving the same bits.
 
 import ctypes
 import dataclasses
+import json
 import os
+import sys
+from pathlib import Path
 
 # cuBLAS takes its workspace setting when CUDA starts: the deterministic
 # remat test needs a fixed one.
@@ -1150,3 +1159,58 @@ def test_remat_on_card_gives_the_same_bits(card):
             assert all(torch.equal(g, r) for g, r in zip(grads, ref_grads))
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+def test_two_ranks_on_the_card(card, tmp_path):
+    """Two ranks (``repro_torch.launch.distributed.launch_simulated`` of
+    ``tests/torch_dist_worker.py``), sharing one card over gloo, or a
+    card each over NCCL where the machine has two, run the launcher's
+    quadratic job through K1 and K2: ``gather`` and the cells axis bit
+    for bit the same study in this process, ``psum`` and ``fused``
+    within ``rtol=1e-5, atol=1e-6``; each rank's shard of a ragged
+    buffer held against the plain versions, the last shard (every row
+    masked, NaN) exact zeros; one compile per structure group per rank
+    and a K1 or K2 launch a step of every cell, in the first run and
+    the warm repeat of each combination."""
+    from repro_torch.launch import distributed as dist
+
+    worker = str(Path(__file__).resolve().parent / "torch_dist_worker.py")
+    ops.load()  # the ranks load the library built here
+    dist.launch_simulated(2, command=[sys.executable, worker], argv=[
+        "--mesh", "clients,cells", "--reduction", "gather,psum,fused",
+        "--steps", "12", "--check-masked-shard", "--no-extra",
+        "--out", str(tmp_path)], timeout=300)
+    got = dict(np.load(tmp_path / "results.npz"))
+    want = dist.flatten_results("ref", dist.reference_results(
+        12, 2, device="cuda"))
+    for key, value in got.items():
+        tag, cell, field = key.split("|")
+        ref_value = want[f"ref|{cell}|{field}"]
+        if tag in ("cells", "clients-gather") or field in (
+                "participation", "finite", "diverged"):
+            np.testing.assert_array_equal(value, ref_value, err_msg=key)
+        else:
+            np.testing.assert_allclose(value, ref_value, rtol=1e-5,
+                                       atol=1e-6, err_msg=key)
+    reports = [json.loads((tmp_path / f"report_p{r}.json").read_text())
+               for r in range(2)]
+    extras = [json.loads((tmp_path / f"extra_p{r}.json").read_text())
+              for r in range(2)]
+    shared = torch.cuda.device_count() < 2
+    backend = "gloo" if shared else "nccl"
+    assert [r["backend"] for r in reports] == [backend, backend]
+    assert all(r["shared_card"] == shared for r in reports)
+    last = extras[1]["masked_shard"]
+    assert last["active_rows"] == 0 and last["local_zero"]
+    # (gather + psum) on 8 cells, and fused on 8 plus the cells mesh's
+    # 4, each run twice for 12 steps.
+    want_launches = {"masked_scaled_aggregate": 2 * 12 * (8 + 8),
+                     "masked_scaled_aggregate_update": 2 * 12 * (8 + 4)}
+    for rep, extra in zip(reports, extras):
+        assert extra["masked_shard"]["k1_err"] <= 1e-6
+        assert extra["masked_shard"]["k2_err"] <= 1e-6
+        assert extra["launches"] == want_launches
+        for tag, combo in rep["combos"].items():
+            assert combo["compiles"] == 2 and combo["warm_new_compiles"] == 0
+        assert rep["combos"]["cells"]["params_sha256"] == \
+            reports[0]["combos"]["cells"]["params_sha256"]

@@ -276,7 +276,9 @@ def test_refusals_name_their_roadmap_step(prob):
     sim = TSim(grads_fn=_never, p=prob.p, optimizer=t_sgd(0.01), device="cpu")
     cells = _cells(("a", "alg1", "periodic", N_CAP, {}))
     kw = dict(sim=sim, params0=torch.from_numpy(W0), num_steps=T, seeds=1)
-    with pytest.raises(NotImplementedError, match="step 7"):
+    # Placement is ported: a mesh must be the port's rank mesh, and is
+    # checked before any step runs.
+    with pytest.raises(TypeError, match="placement.Mesh"):
         TE.execute_cells(cells, mesh=object(), **kw)
     # The executable cache is ported: the engine asks it for the group's
     # runner before any step runs.

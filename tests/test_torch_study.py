@@ -29,8 +29,8 @@ Against the JAX package, on the same inputs:
   short grid through the port's ``get_study("fig1")`` and writes its CSV.
 
 And inside the port: ``Study.simulator`` memoizes and is bounded at
-``SIM_CACHE_SIZE``; the refused part (mesh) raises
-``NotImplementedError`` naming its ROADMAP step, manifests round-trip,
+``SIM_CACHE_SIZE``; a mesh that is not the port's rank mesh raises
+``TypeError`` before any step, manifests round-trip,
 ``checkpoint_dir`` runs and equals the unchunked study bit for bit, and
 with a mesh it raises JAX's ``ValueError``; with no card and no
 ``device=``, the study, the examples, the benches and the serve launcher
@@ -257,7 +257,9 @@ def test_refusals_name_their_roadmap_step(problems, tmp_path):
     kw = dict(grads_fn=lambda w, k, t: tprob.all_grads(w), p=tprob.p,
               optimizer=t_sgd(0.01), params0=torch.from_numpy(W0),
               device="cpu")
-    with pytest.raises(NotImplementedError, match="step 7"):
+    # Placement is ported: a mesh must be the port's rank mesh, and is
+    # checked before any step runs.
+    with pytest.raises(TypeError, match="placement.Mesh"):
         study.run(config=TE.ExecutionConfig(mesh=object()), **kw)
     # checkpoint_dir is ported: it runs, and with a mesh it is refused
     # as the JAX package refuses it.
