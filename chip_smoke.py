@@ -258,8 +258,45 @@ without printing its result line:
    ``torch.profiler`` (host and device): K3, the MoE layer's router,
    dispatch, expert products and combine (its ``torch.profiler``
    ranges), and the rest, as shares of the device time. Each line
-   carries the card's name and power limit.
-15. Multimodal phase: qwen2-vl-2b (28 layers, 12 heads over 2 kv heads
+   carries the card's name and power limit. phi3.5's prefill, decode
+   (the replay and 8 greedy steps, their routing logged) and floor are
+   kept for the ep phase.
+15. Ep phase: phi3.5-moe-42b-a6.6b at full width served with its
+   experts split over ranks (``repro_torch.models.moe``'s
+   expert-parallel path), random bf16 weights from seed 0, the zoo
+   phase's tokens; ranks are copies of this script (``--ep-child``)
+   started by ``launch_simulated``. One card: two ranks share it over
+   gloo, at the zoo phase's 6 layers, on ``(data 2, model 1)`` (all 16
+   experts a layer, half the rows each), then ``(data 1, model 2)``
+   (each rank's 8 of 16 experts a layer cut from that model,
+   ``place_params``, the other 8 freed). On each
+   mesh a rank prints its rows, experts and bytes, its prefill ms (the
+   first counted: K3 once a layer, and two more), one ``all_reduce``
+   of a layer's partial outputs timed alone, decode (the zoo phase's
+   64-token replay, then 8 greedy steps) ms a step, its peak memory
+   and aux loss, and the mesh its dropped share. ``(1, 2)`` is held
+   against the zoo phase's one-rank run: bitwise (logits, every
+   token's routing, greedy tokens) when cuBLAS gives a batch of 8
+   experts the bits of 16 (checked and printed), else by the zoo
+   phase's rule. ``(2, 1)`` is held bitwise against each data shard's
+   rows prefilled alone on rank 0, by the rule against rank 0's global
+   path at ds = 2 (a ``("data",)`` layout mesh: per-shard positions
+   and capacity, every row, the decode too), and its aux within 1e-6
+   of the mean of the shards' own. The ranks start once K3 is built,
+   after the Fig-1 phase ("k3 build wait"), run beside the engine,
+   faults and serve phases, which leave the card idle most of a step
+   ("ep wait" is the wait for them before the dist phase, whose timings
+   they must not share the card with), and are reported after the zoo
+   phase. Four cards: a rank a card over NCCL, ``(1, 4)`` at all 32
+   layers (4 experts a layer a rank, each rank drawing its own alone,
+   ``init_lm(mesh=)``) and ``(2, 2)`` at 6, a prefill held layer by
+   layer: each MoE layer's output and routing
+   against the one-rank ``apply_moe`` on its input with the layer's
+   experts gathered from the row (within 2**-7 of its largest value,
+   every token routed alike). ``--ep-only`` runs this phase alone (for
+   four cards; on one, ``(1, 2)`` has no one-rank run to be held
+   against). Each line carries the card's name and power limit.
+16. Multimodal phase: qwen2-vl-2b (28 layers, 12 heads over 2 kv heads
    of 128, M-RoPE, 256 vision tokens) and whisper-tiny (4 encoder and 4
    decoder layers, 6 heads of 64, sinusoidal positions) at full width
    and depth, random bf16 weights from a seed, in turn: init; one
@@ -281,7 +318,7 @@ without printing its result line:
    steps; one prefill under ``torch.profiler`` (K3's share of the device
    time); the peak device memory. Each line carries the card's name and
    power limit.
-16. Zoo train phase: whisper-tiny (B = 16 x S = 448, 1,500 zero frames),
+17. Zoo train phase: whisper-tiny (B = 16 x S = 448, 1,500 zero frames),
    qwen2-vl-2b (B = 16 x S = 1,024, 256 synthetic patch embeddings a
    row, given to the driver as ``side_inputs``: its own zero vision
    tokens make full-depth training non-finite, ROADMAP R5), zamba2-2.7b
@@ -304,7 +341,7 @@ without printing its result line:
    cast to bf16 for the one-dtype flat buffer), 1 step, counted, against
    K2's plain version. Each line carries the card's name and power
    limit.
-17. Prints the ``kernels`` JSON line (K1 and K2 also carry the engine,
+18. Prints the ``kernels`` JSON line (K1 and K2 also carry the engine,
    faults, serve and dist phases' counts, ``engine_launches``,
    ``faults_launches``, ``serve_launches`` and ``dist_launches`` (a
    rank's, by combination), and their times at a shard's rows,
@@ -312,8 +349,9 @@ without printing its result line:
    flat SGD launches, ``train_launches`` (stablelm's under ``flat_sgd``,
    zamba2's under its name), and its time at stablelm's shape,
    ``train_shape``; K3
-   and K4 the recurrent phase's, ``recurrent_launches``; K3 the zoo and
-   multimodal phases', ``zoo_launches`` and ``mm_launches``; K4's
+   and K4 the recurrent phase's, ``recurrent_launches``; K3 the zoo,
+   multimodal and ep phases', ``zoo_launches``, ``mm_launches`` and
+   ``ep_launches`` (a rank's prefill, by mesh); K4's
    ``launches`` are the recurrent prefills', its K4 phase's count
    ``phase_launches``), then the result line.
 
@@ -325,7 +363,8 @@ reports its last step before the driver writes its final checkpoint;
 that write runs beside the recurrent phase, and the child's exit is
 checked after it (``phase seconds`` lists the wait as "resume end").
 The dist phase's ranks (``--dist-child``) are started by
-``launch_simulated`` when that phase begins.
+``launch_simulated`` when that phase begins; the ep phase's
+(``--ep-child``) after the Fig-1 phase.
 
 Tolerances: f32 aggregate kernels against the plain versions
 rtol=atol=1e-6 (the client sum runs in another order; weights at the
@@ -3528,6 +3567,8 @@ def zoo_model(torch, rt, fa_ops, card, name, n_layers, n_params):
               f"on a row whose top-two gap exceeds 2x the floor")
 
     tok, first = nxt[:, None], []
+    # The ep phase's one-rank run: phi3.5's greedy steps' routing too.
+    moe.routing_log = [] if name == EP_MODEL else None
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3537,6 +3578,11 @@ def zoo_model(torch, rt, fa_ops, card, name, n_layers, n_params):
             first.append(nxt)
         torch.cuda.synchronize()
         greedy_ms = (time.perf_counter() - t0) / REC_GREEDY * 1e3
+    greedy_log, moe.routing_log = moe.routing_log, None
+    if name == EP_MODEL:
+        ep_keep(torch, flash, logs["prefill"],
+                logs["decode"] + greedy_log[:EP_GREEDY * n_layers],
+                torch.stack(first[:EP_GREEDY]), floor, shares["prefill"])
     check(bool(torch.isfinite(logits).all()), f"{name} decode logits not finite")
     print(f"zoo decode {name}: {REC_GREEDY} greedy steps at positions "
           f"{REC_PROMPT}..{REC_PROMPT + REC_GREEDY - 1}, {greedy_ms:.2f} ms/step "
@@ -4093,6 +4139,578 @@ def zoo_train_phase(torch, rt, ops, peaks, card):
     return counts
 
 
+# Ep phase: phi3.5-moe served with its experts split over ranks
+# (repro_torch.models.moe's expert-parallel path). One card: two ranks
+# sharing it over gloo, at the zoo phase's depth, on (data 2, model 1),
+# each rank the whole model (one draw), then (data 1, model 2), each
+# rank its half of the experts cut from that (place_params). Four cards:
+# a rank a card over NCCL, (1, 4) at full depth and (2, 2) at the zoo
+# phase's depth, each rank drawing its experts alone (init_lm(mesh=)),
+# each layer held on the ranks against the one-rank layer on its input.
+# An entry: the mesh's shape, the layers, and whether each layer is held
+# on the ranks.
+EP_MODEL = ZOO_PROFILED
+EP_DEPTH = dict((m[0], m[1]) for m in ZOO_MODELS)[EP_MODEL]
+EP_ONE = (((2, 1), EP_DEPTH, False), ((1, 2), EP_DEPTH, False))
+EP_FOUR = (((1, 4), 32, True), ((2, 2), EP_DEPTH, True))
+# Greedy decode steps after the 64-token replay (REC_PROMPT), timed
+# prefills after the counted one, and all_reduce repeats timed.
+EP_GREEDY, EP_TIMED, EP_REDUCE_REPEATS = 8, 2, 5
+# A layer held on the ranks: its output within 2**-7 of the largest
+# |output| of the one-rank layer on the same input (one bf16 rounding of
+# the largest value, twice), and every token routed alike.
+EP_LAYER_TOL = 2 ** -7
+# The one-rank run the one-card (1, 2) mesh is held against: the zoo
+# phase's phi3.5 prefill and decode (ep_keep).
+EP_REFERENCE = {}
+
+
+def ep_tag(shape):
+    return "x".join(map(str, shape))
+
+
+def ep_decode(torch, serve, params, cfg, tokens):
+    """The zoo phase's decode on ``tokens``' rows: the first REC_PROMPT
+    tokens fed one at a time through ``serve``, then EP_GREEDY greedy
+    steps, every step's routing logged. Returns the greedy tokens
+    (steps, rows), the log, and the replay's and greedy steps' ms."""
+    from repro_torch.models import moe, transformer
+
+    prompt = tokens[:, :REC_PROMPT]
+    states = transformer.init_decode_state(
+        cfg, tokens.shape[0], transformer.decode_cache_len(cfg, REC_CACHE),
+        device=tokens.device)
+    moe.routing_log = []
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(REC_PROMPT):
+            nxt, _, states = serve(params, prompt[:, pos:pos + 1], states, pos)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok, greedy = nxt[:, None], []
+        for pos in range(REC_PROMPT, REC_PROMPT + EP_GREEDY):
+            nxt, _, states = serve(params, tok, states, pos)
+            tok = nxt[:, None]
+            greedy.append(nxt)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        log = moe.routing_log
+    finally:
+        moe.routing_log = None
+    return (torch.stack(greedy), log, (t1 - t0) / REC_PROMPT * 1e3,
+            (t2 - t1) / EP_GREEDY * 1e3)
+
+
+def ep_keep(torch, logits, prefill_log, decode_log, greedy, floor, share):
+    """Keep a one-rank phi3.5 run on the host for the ep phase."""
+    host = lambda log: [(e.cpu(), k.cpu()) for e, k in log]  # noqa: E731
+    EP_REFERENCE.update(logits=logits.float().cpu(), prefill=host(prefill_log),
+                        decode=host(decode_log), greedy=greedy.cpu(),
+                        floor=floor, dropped=share)
+
+
+def ep_tokens(torch, rt, cfg, device):
+    """The zoo phase's tokens: B = 8 x S = 2,048 Zipf-Markov ids, seed 0."""
+    data = rt.data.make_lm_tokens(0, LM_BATCH, LM_SEQ, cfg.vocab).tokens
+    return torch.from_numpy(data[:, :LM_SEQ]).to(device)
+
+
+def ep_bmm_bitwise(torch, device, n_experts, rows, d_model, d_ff):
+    """Whether cuBLAS gives a batch of the first n/2 experts (and the
+    first half of the capacity rows) the bits the whole batch gives
+    them, at the expert products' shapes: (gate/up, down)."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    buf = torch.randn(n_experts, rows, d_model, device=device,
+                      generator=gen).to(torch.bfloat16)
+    w = torch.randn(n_experts, d_model, d_ff, device=device,
+                    generator=gen).to(torch.bfloat16)
+    h = torch.randn(n_experts, rows, d_ff, device=device,
+                    generator=gen).to(torch.bfloat16)
+    wd = w.transpose(1, 2).contiguous()
+    half, r = n_experts // 2, rows // 2
+    whole = (torch.bmm(buf, w), torch.bmm(h, wd))
+    experts = (torch.equal(torch.bmm(buf[:half], w[:half]), whole[0][:half])
+               and torch.equal(torch.bmm(h[:half], wd[:half]), whole[1][:half]))
+    capacity = (torch.equal(torch.bmm(buf[:, :r], w), whole[0][:, :r])
+                and torch.equal(torch.bmm(h[:, :r], wd), whole[1][:, :r]))
+    return {"experts": experts, "rows": capacity}
+
+
+def ep_all_reduce_ms(torch, mesh, n_tokens, d_model, device):
+    """The median ms of one all_reduce of a (tokens, d_model) bf16 tensor
+    over this rank's "model" row, the expert-parallel layer's sum (None
+    for a one-rank row)."""
+    import torch.distributed as tdist
+
+    if mesh.row_group is None:
+        return None
+    buf = torch.ones(n_tokens, d_model, dtype=torch.bfloat16, device=device)
+    ms = []
+    for _ in range(EP_REDUCE_REPEATS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tdist.all_reduce(buf, group=mesh.row_group)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ms[1:])[len(ms[1:]) // 2]
+
+
+def ep_held_prefill(torch, mesh, prefill, params, tokens):
+    """One prefill with each MoE layer held on the ranks: the layer's
+    expert-parallel output against the one-rank ``apply_moe`` (off the
+    mesh, the layer's experts gathered from the row) on the same input,
+    the gathered experts freed after. Returns each layer's largest
+    distance, the one-rank output's largest magnitude and the tokens
+    routed otherwise."""
+    import torch.distributed as tdist
+
+    from repro_torch.models import blocks, moe
+    from repro_torch.models.common import use_mesh
+
+    real, layers = blocks.apply_moe, []
+
+    def gather(w):
+        parts = [torch.empty_like(w) for _ in range(mesh.shape["model"])]
+        tdist.all_gather(parts, w.contiguous(), group=mesh.row_group)
+        return torch.cat(parts)
+
+    def held(p, x, **kw):
+        moe.routing_log = []
+        y, aux = real(p, x, **kw)
+        whole = dict(p, **{k: gather(p[k]) for k in moe.EXPERT_LEAVES})
+        with use_mesh(None):
+            y1, _ = real(whole, x, **kw)
+        (e0, k0), (e1, k1) = moe.routing_log
+        layers.append({
+            "dist": (y.float() - y1.float()).abs().max().item(),
+            "top": y1.float().abs().max().item(),
+            "flips": int(((e0 != e1) | (k0 != k1)).any(-1).sum())})
+        del whole, y1
+        return y, aux
+
+    blocks.apply_moe = held
+    try:
+        prefill(params, {"tokens": tokens})
+    finally:
+        blocks.apply_moe = real
+        moe.routing_log = None
+    return layers
+
+
+def ep_log_arrays(torch, arrays, prefix, log):
+    """A routing log as two stacked arrays (entries, T, K)."""
+    arrays[f"{prefix}top_e"] = torch.stack([e for e, _ in log]).cpu().numpy()
+    arrays[f"{prefix}keep"] = torch.stack([k for _, k in log]).cpu().numpy()
+
+
+def ep_mesh(torch, rt, mesh, cfg, params, held, tokens, device, reference):
+    """One mesh of the ep phase on this rank, with this rank's ``params``:
+    the counted and timed prefill on its rows, the aux, the all_reduce's
+    ms, decode; with ``held``, a prefill held layer by layer; with
+    ``reference`` on rank 0, the one-rank global path at the mesh's data
+    shards (a ("data",) layout, no expert axis: JAX's global path with ds
+    = the data shards) over all rows, and each data shard's rows
+    prefilled alone (their aux). Returns (numbers, arrays)."""
+    import numpy as np
+    import torch.distributed as tdist
+
+    from repro_torch.experiments import placement
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.common import data_rows, use_mesh
+
+    rank = tdist.get_rank()
+    rows = data_rows(LM_BATCH, mesh)
+    mine = tokens[rows]
+    leaves = list(named_leaves(params))
+    nbytes = lambda ls: sum(x.numel() * x.element_size() for x in ls)  # noqa: E731
+    experts = [x for p, x in leaves
+               if p[-2:-1] == ("moe",) and p[-1] in moe.EXPERT_LEAVES]
+    out = {"rows": [rows.start, rows.stop], "layers": cfg.n_layers,
+           "experts_a_layer": int(experts[0].shape[-3]),
+           "expert_bytes": nbytes(experts),
+           "param_bytes": nbytes(x for _, x in leaves)}
+    arrays = {}
+    prefill, serve = make_prefill_step(cfg), make_serve_step(cfg)
+    with use_mesh(mesh, batch=LM_BATCH), torch.no_grad():
+        fa_ops.reset_launch_counts()
+        moe.reset_dispatch_counts()
+        moe.routing_log = []
+        logits, first_ms = timed(torch, lambda: prefill(params,
+                                                        {"tokens": mine}))
+        out["launches"] = fa_ops.launch_counts["flash_attention"]
+        log, moe.routing_log = moe.routing_log, None
+        out["assigned"] = int(moe.dispatch_counts["assigned"])
+        out["dropped"] = int(moe.dispatch_counts["dropped"])
+        out["prefill_ms"] = [first_ms] + [
+            timed(torch, lambda: prefill(params, {"tokens": mine}))[1]
+            for _ in range(EP_TIMED)]
+        _, aux = transformer.hidden_states(params, cfg, mine)
+        out["aux"] = aux.item()
+        out["all_reduce_ms"] = ep_all_reduce_ms(torch, mesh, mine.numel(),
+                                                cfg.d_model, device)
+        greedy, dec_log, out["replay_ms"], out["greedy_ms"] = ep_decode(
+            torch, serve, params, cfg, mine)
+        if held:
+            out["held"] = ep_held_prefill(torch, mesh, prefill, params, mine)
+    arrays["logits"] = logits.float().cpu().numpy()
+    arrays["greedy"] = greedy.cpu().numpy()
+    ep_log_arrays(torch, arrays, "prefill_", log)
+    ep_log_arrays(torch, arrays, "decode_", dec_log)
+    if reference and rank == 0:
+        layout = placement.Mesh(("data",), np.arange(mesh.shape["data"]))
+        with use_mesh(layout), torch.no_grad():
+            moe.routing_log = []
+            ref = prefill(params, {"tokens": tokens})
+            ref_log, moe.routing_log = moe.routing_log, None
+            ref_greedy, ref_dec, _, _ = ep_decode(torch, serve, params, cfg,
+                                                  tokens)
+        # Each data shard's rows prefilled alone (the prefill step's own
+        # calls): the shard's capacity and the rank's products' shapes.
+        n, shard_logits, shard_log, out["shard_aux"] = (
+            LM_BATCH // mesh.shape["data"], [], [], [])
+        with torch.no_grad():
+            for i in range(mesh.shape["data"]):
+                moe.routing_log = []
+                x, aux = transformer.hidden_states(params, cfg,
+                                                   tokens[i * n:(i + 1) * n])
+                shard_logits.append(transformer._head(params, cfg,
+                                                      x[:, -1:])[:, 0])
+                shard_log.append(moe.routing_log)
+                moe.routing_log = None
+                out["shard_aux"].append(aux.item())
+        arrays["shard_logits"] = torch.cat(shard_logits).float().cpu().numpy()
+        ep_log_arrays(torch, arrays, "shard_prefill_", [
+            tuple(torch.cat(parts) for parts in zip(*layer))
+            for layer in zip(*shard_log)])
+        arrays["ref_logits"] = ref.float().cpu().numpy()
+        arrays["ref_greedy"] = ref_greedy.cpu().numpy()
+        ep_log_arrays(torch, arrays, "ref_prefill_", ref_log)
+        ep_log_arrays(torch, arrays, "ref_decode_", ref_dec)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out, arrays
+
+
+def ep_child(out):
+    """A rank of the ep phase (``--ep-child``, started by
+    ``launch_simulated``; the rank from the ``REPRO_DIST_*`` environment):
+    loads the port and K3 (built by the parent), builds the meshes of
+    EP_ONE (2 ranks) or EP_FOUR (4) and runs each (``ep_mesh``) with this
+    rank's parameters: on one card the whole model drawn once for ``(2,
+    1)``, then its half of the experts cut from it for ``(1, 2)``
+    (``place_params``); on four, each rank's experts drawn alone
+    (``init_lm(mesh=)``). Writes ``<mesh>_p<rank>.npz`` and its report
+    to ``out``."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    t_setup = time.perf_counter()
+    rt = load_port()
+    from repro_torch.experiments import placement
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import distributed as D
+    from repro_torch.models import transformer
+
+    device = D.init_from_env()
+    size, rank = placement._world()
+    # The ranks' work is on the card; the cores are the parent's phases'.
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa_ops.load()
+    plan = EP_FOUR if size == 4 else EP_ONE
+    meshes = [placement.make_mesh(shape) for shape, _, _ in plan]
+    torch.zeros((), device=device)
+    cfg = rt.configs.get_config(EP_MODEL)
+    report = {"rank": rank, "world": size, "device": str(device),
+              "backend": tdist.get_backend(),
+              "n_experts": cfg.n_experts, "d_model": cfg.d_model,
+              "setup_s": time.perf_counter() - t_setup, "meshes": {}}
+    t_run = time.perf_counter()
+    tokens = ep_tokens(torch, rt, cfg, device)
+    whole = None
+    for mesh, (shape, layers, held) in zip(meshes, plan):
+        tag = ep_tag(shape)
+        layer_cfg = cfg.replace(n_layers=layers, use_flash=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if whole is not None:
+            params = transformer.place_params(whole, mesh)
+            how = "place_params: its experts cut from the whole model"
+        else:
+            params = transformer.init_lm(rt.random.PRNGKey(0, device=device),
+                                         layer_cfg, mesh=mesh)
+            how = ("init_lm: the whole model" if shape[-1] == 1 else
+                   "init_lm(mesh=): its experts drawn alone")
+        torch.cuda.synchronize()
+        init_ms = (time.perf_counter() - t0) * 1e3
+        whole = params if size == 2 and shape[-1] == 1 else None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run, arrays = ep_mesh(torch, rt, mesh, layer_cfg, params, held,
+                              tokens, device,
+                              reference=size == 2 and shape[0] > 1)
+        report["meshes"][tag] = dict(run, init_ms=init_ms, init=how)
+        del params
+        np.savez(os.path.join(out, f"{tag}_p{rank}.npz"), **arrays)
+    if size == 2 and rank == 0:
+        d = cfg.d_model
+        rows = LM_BATCH * LM_SEQ * cfg.top_k * cfg.moe_capacity_factor
+        report["bmm_bitwise"] = ep_bmm_bitwise(
+            torch, device, cfg.n_experts, int(rows // cfg.n_experts), d,
+            cfg.d_ff)
+    report["run_s"] = time.perf_counter() - t_run
+    with open(os.path.join(out, f"report_p{rank}.json"), "w") as f:
+        json.dump(report, f, indent=1, sort_keys=True)
+    tdist.destroy_process_group()
+    return 0
+
+
+def ep_start(torch):
+    """Start the ep phase's ranks (2 sharing the card, or 4 on four
+    cards); they run beside this process's phases."""
+    from repro_torch.launch import distributed as D
+
+    cards = torch.cuda.device_count()
+    world = 4 if cards >= 4 else 2
+    directory = tempfile.mkdtemp(prefix="chip_smoke_ep_")
+    pool = ThreadPoolExecutor(max_workers=1)
+    ep = {"dir": directory, "world": world, "cards": cards,
+          "t0": time.perf_counter()}
+    ep["future"] = pool.submit(D.launch_simulated, world, command=[
+        sys.executable, str(ROOT / "chip_smoke.py"), "--ep-child"],
+        argv=[directory], timeout=900)
+    ep["future"].add_done_callback(
+        lambda _: ep.setdefault("t_end", time.perf_counter()))
+    pool.shutdown(wait=False)
+    return ep
+
+
+def ep_wait(ep):
+    """Wait for the ranks to exit (a failed rank raises its stderr)."""
+    ep["future"].result()
+
+
+def ep_load(ep):
+    """The ranks' reports and arrays: ([report a rank], {mesh: [arrays a
+    rank]})."""
+    import numpy as np
+
+    reports = []
+    for rank in range(ep["world"]):
+        with open(os.path.join(ep["dir"], f"report_p{rank}.json")) as f:
+            reports.append(json.load(f))
+    arrays = {tag: [dict(np.load(os.path.join(ep["dir"],
+                                              f"{tag}_p{r}.npz")))
+                    for r in range(ep["world"])]
+              for tag in reports[0]["meshes"]}
+    return reports, arrays
+
+
+def ep_hold(torch, label, got, want, bitwise, floor, n_layers, card):
+    """The ep phase's rule on ``got`` and ``want``, each (logits, prefill
+    log, decode log, greedy tokens): with ``bitwise`` (cuBLAS gives the
+    products the one-rank bits) every logit, routing choice and token
+    equal; else the zoo phase's rule: a row whose last token routed
+    otherwise in a layer is not held (at least half are), a held row's
+    logits within 2x the zoo phase's floor (when known), and the greedy
+    tokens equal on the rows whose decode routed alike; the tokens
+    routed otherwise are printed. Returns how it held."""
+    logits, log, dec_log, greedy = got
+    w_logits, w_log, w_dec, w_greedy = want
+    flips = flipped_rows(torch, log, w_log, n_layers)
+    diffs = routing_diffs(torch, log, w_log)
+    dec_diffs = routing_diffs(torch, dec_log, w_dec)
+    rows = row_dists(logits, w_logits)
+    same_tokens = (greedy == w_greedy).all(0)
+    print(f"{label}: prefill logits' distance a row "
+          f"{[round(x, 4) for x in rows.tolist()]}; (layer, token) entries "
+          f"routed otherwise a row {diffs}, the last token in rows "
+          f"{flips.nonzero()[:, 0].tolist()}; decode (step, layer) entries "
+          f"routed otherwise a row {dec_diffs}; greedy tokens equal a row "
+          f"{same_tokens.tolist()} [{card}]")
+    exact = (torch.equal(logits, w_logits) and not any(diffs)
+             and not any(dec_diffs) and bool(same_tokens.all()))
+    if bitwise or exact:
+        check(exact, f"{label}: cuBLAS gives the one-rank bits, so every "
+              f"logit, routing choice and greedy token must be the one-rank "
+              f"run's")
+        return "bitwise"
+    held = ~flips
+    check(int(held.sum()) >= LM_BATCH // 2,
+          f"{label}: routing flips moved {int(flips.sum())} of {LM_BATCH} rows")
+    if floor is not None:
+        err = rows[held].max().item()
+        check(err <= 2 * floor, f"{label}: {err:.4g} on the held rows, above "
+              f"2x the zoo phase's floor {floor:.4g}")
+    for row, n in enumerate(dec_diffs):
+        check(n or bool(same_tokens[row]), f"{label}: row {row} routed alike "
+              f"in decode but its greedy tokens differ")
+    return (f"the rule: rows {held.nonzero()[:, 0].tolist()} held, the floor "
+            + ("unknown (--ep-only)" if floor is None else f"{floor:.4g}"))
+
+
+def ep_arrays(torch, ranks, prefix, decode=True):
+    """(logits, prefill log, decode log, greedy tokens) of ``prefix`` on
+    the card: the ranks' rows concatenated in rank order (one rank's when
+    ``ranks`` holds one); without ``decode``, (logits, prefill log)."""
+    import numpy as np
+
+    def cat(key, axis):
+        return torch.from_numpy(np.concatenate([a[prefix + key] for a in ranks],
+                                               axis=axis)).to(DEVICE)
+
+    def log(kind):
+        return list(zip(cat(f"{kind}_top_e", 1).unbind(0),
+                        cat(f"{kind}_keep", 1).unbind(0)))
+
+    if not decode:
+        return cat("logits", 0), log("prefill")
+    return cat("logits", 0), log("prefill"), log("decode"), cat("greedy", 1)
+
+
+def ep_phase(torch, ep, card):
+    """The ep phase's report (module docstring): the ranks' runs held
+    against the one-rank runs, their times, memory and dropped shares.
+    Returns K3's launches a prefill by rank and mesh."""
+    reports, arrays = ep_load(ep)
+    shared = ep["cards"] < ep["world"]
+    tag_card = f"[{card}{', shared card' if shared else ''}]"
+    rep0 = reports[0]
+    n_experts, d_model = rep0["n_experts"], rep0["d_model"]
+    print(f"ep: {ep['world']} ranks over {rep0['backend']} on {ep['cards']} "
+          f"card(s), {'shared by the ranks' if shared else 'one a rank'}; "
+          f"set-up {max(r['setup_s'] for r in reports):.1f} s a rank, the "
+          f"meshes {max(r['run_s'] for r in reports):.1f} s a rank, "
+          f"{ep['t_end'] - ep['t0']:.1f} s wall from their start to their "
+          f"exit; one torch thread a rank"
+          + ("; gloo sums CUDA tensors through the host, so its times are "
+             "not those of a card a rank" if rep0["backend"] == "gloo" else "")
+          + f" {tag_card}")
+    check(all(r["backend"] == ("gloo" if shared else "nccl") for r in reports),
+          f"ep: backends {[r['backend'] for r in reports]}")
+    if "bmm_bitwise" in rep0:
+        print(f"ep: cuBLAS gives a batch of {n_experts // 2} experts the bits "
+              f"of {n_experts}: {rep0['bmm_bitwise']['experts']}; half the "
+              f"capacity rows the bits of all: {rep0['bmm_bitwise']['rows']} "
+              f"(the expert products' shapes, bf16) {tag_card}")
+    launches = {}
+    for tag in rep0["meshes"]:
+        runs = [r["meshes"][tag] for r in reports]
+        ranks = arrays[tag]
+        n_layers, tp = runs[0]["layers"], int(tag.split("x")[1])
+        for r, run in zip(reports, runs):
+            launches.setdefault(f"rank{r['rank']}", {})[tag] = run["launches"]
+            check(run["launches"] == n_layers,
+                  f"ep {tag} rank {r['rank']}: {run['launches']} K3 launches "
+                  f"a prefill, expected {n_layers}")
+            check(run["experts_a_layer"] * tp == n_experts,
+                  f"ep {tag} rank {r['rank']}: {run['experts_a_layer']} "
+                  f"experts a layer")
+            reduce_ms = run["all_reduce_ms"]
+            n_rows = run["rows"][1] - run["rows"][0]
+            print(f"ep {tag} rank {r['rank']}: rows {run['rows'][0]}.."
+                  f"{run['rows'][1] - 1}, {n_layers} layers, "
+                  f"{run['experts_a_layer']} of {n_experts} experts a layer "
+                  f"({run['expert_bytes'] / 1e9:.2f} GB of experts, "
+                  f"{run['param_bytes'] / 1e9:.2f} GB of parameters; "
+                  f"{run['init']}, {run['init_ms'] / 1e3:.1f} s); prefill "
+                  + " ".join(f"{m:.1f}" for m in run["prefill_ms"])
+                  + f" ms (the first counted: {run['launches']} K3 launches); "
+                  f"one all_reduce of a layer's {n_rows * LM_SEQ:,} x "
+                  f"{d_model} bf16 partial outputs "
+                  + ("none (one rank a row)" if reduce_ms is None
+                     else f"{reduce_ms:.2f} ms") + f"; decode "
+                  f"{run['replay_ms']:.1f} ms/step replayed, "
+                  f"{run['greedy_ms']:.1f} ms/step greedy; peak "
+                  f"{run['peak_gb']:.2f} GB; aux {run['aux']:.6f} {tag_card}")
+        assigned = sum(run["assigned"] for run in runs)
+        dropped = sum(run["dropped"] for run in runs)
+        print(f"ep {tag}: dropped {100 * dropped / assigned:.2f} % of the "
+              f"prefill's {assigned:,} assignments (each rank counts those to "
+              f"its own experts) {tag_card}")
+        if "held" in runs[0]:
+            for r, run in zip(reports, runs):
+                print(f"ep {tag} rank {r['rank']} held layer by layer "
+                      f"(largest |expert-parallel - one-rank| / largest "
+                      f"|one-rank|, tokens routed otherwise): " + ", ".join(
+                          f"{x['dist']:.3g}/{x['top']:.3g} {x['flips']}"
+                          for x in run["held"]) + f" {tag_card}")
+                for i, x in enumerate(run["held"]):
+                    check(x["flips"] == 0 and x["dist"] <= EP_LAYER_TOL
+                          * x["top"], f"ep {tag} rank {r['rank']} layer {i}: "
+                          f"{x}")
+            continue
+        if tag == "1x2":
+            # Both ranks hold every row: the same bits.
+            check(all((ranks[0][k] == ranks[1][k]).all() for k in ranks[0]),
+                  f"ep {tag}: the two ranks differ")
+            ref = EP_REFERENCE
+            if not ref:
+                print(f"ep {tag}: no one-rank run to hold it against "
+                      f"{tag_card}")
+                continue
+            want = (ref["logits"].to(DEVICE),
+                    [(e.to(DEVICE), k.to(DEVICE)) for e, k in ref["prefill"]],
+                    [(e.to(DEVICE), k.to(DEVICE)) for e, k in ref["decode"]],
+                    ref["greedy"].to(DEVICE))
+            how = ep_hold(torch, f"ep {tag} against the one-rank run",
+                          ep_arrays(torch, ranks[:1], ""), want,
+                          rep0["bmm_bitwise"]["experts"], ref["floor"],
+                          n_layers, card)
+            if how == "bitwise":
+                check(dropped / assigned == ref["dropped"],
+                      f"ep {tag}: dropped share {dropped / assigned} against "
+                      f"one rank's {ref['dropped']}")
+            print(f"ep {tag}: held against the one-rank prefill and decode "
+                  f"({how}); the one rank dropped {100 * ref['dropped']:.2f} "
+                  f"% {tag_card}")
+        else:
+            got = ep_arrays(torch, ranks, "")
+            # The data shards' rows prefilled alone on rank 0: the same
+            # products at the same shapes as the ranks', so bit for bit.
+            alone = ep_arrays(torch, ranks[:1], "shard_", decode=False)
+            flips = flipped_rows(torch, got[1], alone[1], n_layers)
+            same = torch.equal(got[0], alone[0]) and not flips.any() and \
+                not any(routing_diffs(torch, got[1], alone[1]))
+            print(f"ep {tag} against each data shard's rows prefilled alone "
+                  f"on rank 0: logits and routing bitwise {same}; logits' "
+                  f"distance a row {[round(x, 4) for x in row_dists(got[0], alone[0]).tolist()]}"
+                  f" {tag_card}")
+            check(same, f"ep {tag}: not the bits of the shards' rows "
+                  f"prefilled alone")
+            how = ep_hold(torch, f"ep {tag} against rank 0's one-rank global "
+                          f"path at ds = 2", got,
+                          ep_arrays(torch, ranks[:1], "ref_"), False,
+                          EP_REFERENCE.get("floor"), n_layers, card)
+            aux = [run["aux"] for run in runs]
+            shard = runs[0]["shard_aux"]
+            want = sum(shard) / len(shard)
+            print(f"ep {tag}: held against the one-rank global path at ds = 2 "
+                  f"({how}); aux on the ranks {aux}, the mean of the data "
+                  f"shards' own {want:.7f} ({shard}) {tag_card}")
+            check(all(abs(x - want) <= 1e-6 * max(1.0, abs(want)) for x in aux),
+                  f"ep {tag}: aux {aux} against the shards' mean {want}")
+    return launches
+
+
+def ep_only(torch, rt, fa_ops, card, kind, phase, seconds):
+    """``--ep-only``: the ep phase alone, for four cards (K3 built, the
+    ranks started; on one card without the zoo phase's one-rank run to
+    hold ``(1, 2)`` against). It prints the ep lines and the phases'
+    seconds, and no result line."""
+    phase("build", fa_ops.load)
+    ep = ep_start(torch)
+    phase("ep wait", ep_wait, ep)
+    launches = phase("ep", ep_phase, torch, ep, card)
+    print(f"ep only: K3 launches a prefill {json.dumps(launches)}; phase "
+          f"seconds: {json.dumps(seconds)} on {kind} [{card}]")
+    return 0
+
+
 def load_port():
     """Import the port from ``./src``."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -4125,6 +4743,8 @@ def main():
         return train_child(sys.argv[2])
     if sys.argv[1:2] == ["--dist-child"]:
         return dist_child(sys.argv[2])
+    if sys.argv[1:2] == ["--ep-child"]:
+        return ep_child(sys.argv[2])
     rt = load_port()
     from repro_torch.kernels import _build
     from repro_torch.kernels.aggregate import ops, ref
@@ -4165,6 +4785,9 @@ def main():
         seconds[name] = round(time.perf_counter() - t0, 1)
         return out
 
+    if sys.argv[1:2] == ["--ep-only"]:
+        return ep_only(torch, rt, fa_ops, card, kind, phase, seconds)
+
     # One nvcc process for each source, all started at once. The phases
     # up to the dist phase need only the aggregate kernels, so the
     # flash-attention and scan sources go on building beside them.
@@ -4178,10 +4801,16 @@ def main():
 
     errs, timing = phase("kernel", kernel_phase, torch, ops, ref, peaks)
     launches, fig1_data = phase("fig1", fig1_phase, torch, rt)
+    # The ep phase's ranks need K3 and run beside the engine, faults and
+    # serve phases, which keep the card idle most of a step; the dist
+    # phase times K1 and K2 after them, so it waits for the ranks.
+    phase("k3 build wait", builds[1].result)
+    ep = ep_start(torch)
     engine_counts = phase("engine", engine_phase, torch, rt, fig1_data)
     fault_counts = phase("faults", faults_phase, torch, rt, fig1_data, card)
     serve_counts = phase("serve", serve_phase, torch, rt, fig1_data, card)
     del fig1_data
+    phase("ep wait", ep_wait, ep)
     dist_counts, dist_shapes = phase("dist", dist_phase, torch, rt, ops, ref,
                                      peaks, card)
 
@@ -4209,6 +4838,8 @@ def main():
                        card)
     phase("resume end", finish_resume, resume, card)
     zoo_counts = phase("zoo", zoo_phase, torch, rt, fa_ops, card)
+    # The ranks' runs, held against the zoo phase's phi3.5 run.
+    ep_launches = phase("ep", ep_phase, torch, ep, card)
     mm_counts = phase("mm", mm_phase, torch, rt, fa_ops, card)
     train_counts.update(phase("zoo train", zoo_train_phase, torch, rt, ops,
                               peaks, card))
@@ -4268,6 +4899,8 @@ def main():
             kernels[-1]["zoo_launches"] = zoo_counts
             # The multimodal phase's prefills, each counted from 0.
             kernels[-1]["mm_launches"] = mm_counts
+            # The ep phase's ranks: a prefill on each mesh, counted from 0.
+            kernels[-1]["ep_launches"] = ep_launches
     # K4's main path is the two recurrent models' prefills: its launches
     # are theirs, counted from 0 before each. Its times and bound are the
     # K4 phase's, one scan at each layer's shape (the sums over both; each

@@ -1,10 +1,13 @@
-"""The environment contract of the multi-process launcher.
+"""The environment variables the port reads.
 
 Port of the ``REPRO_DIST_*`` half of ``repro._env``: the variable names
 :func:`repro_torch.launch.distributed.init_from_env` reads and the
 simulated harness sets on each worker it spawns, and
 :func:`distributed_env`, which parses them. They live here so the names
-have one home that both sides import without importing torch.
+have one home that both sides import without importing torch. Beside
+them, :func:`state_spec_order`: ``REPRO_STATE_SPEC_ORDER``, which
+:func:`repro_torch.sharding.rules.state_specs` reads (the JAX package
+reads it in ``repro.sharding.rules``).
 
 The JAX module's other half, ``ensure_host_device_count``, has no
 counterpart: it gives XLA's CPU backend placeholder devices, one
@@ -24,6 +27,16 @@ DIST_COORDINATOR = "REPRO_DIST_COORDINATOR"
 DIST_NUM_PROCESSES = "REPRO_DIST_NUM_PROCESSES"
 DIST_PROCESS_ID = "REPRO_DIST_PROCESS_ID"
 DIST_LOCAL_DEVICES = "REPRO_DIST_LOCAL_DEVICES"
+STATE_SPEC_ORDER = "REPRO_STATE_SPEC_ORDER"
+
+
+def state_spec_order() -> str:
+    """Which axis of a decode state leaf takes the ``"model"`` mesh axis
+    (``REPRO_STATE_SPEC_ORDER``): ``"trailing"`` (the default) walks the
+    axes from the end, ``"leading"`` from the one after the batch axis,
+    ``"none"`` gives none. Read at each call, where the JAX package reads
+    it once at import."""
+    return os.environ.get(STATE_SPEC_ORDER, "trailing")
 
 
 def distributed_env() -> dict | None:

@@ -31,13 +31,20 @@ draws fold in the *global* client index
 The axes compose: ``make_grid_mesh(cells=2, clients=2)`` runs two cell
 rows, each cell's population split over the two ranks of its row.
 
+**Model meshes** (``("data", "model")``, :func:`make_mesh`, the
+counterpart of ``jax.make_mesh``): the expert-parallel MoE layer
+(:mod:`repro_torch.models.moe`) splits its experts over the ``"model"``
+ranks and its tokens over the ``"data"`` ranks. Such a mesh has one
+process group a data row along ``"model"`` (the partial outputs' sum)
+and one over all its ranks (the load-balance loss's mean).
+
 After a group has run, every rank holds every cell's result: the rank
 at client coordinate 0 of each row publishes its cells and all ranks
 gather them (:func:`_gather_cells`). :func:`replicate_to_mesh` is then a
 no-op lift (every rank built the same inputs) and :func:`fetch_to_host`
 a host copy.
 
-Building a mesh is collective: it makes one process group a cell row
+Building a mesh is collective: it makes its process groups
 (``torch.distributed.new_group``), so every rank must build the same
 meshes in the same order. Meshes are cached by layout, so building one
 again reuses its groups. Without an initialized process group the world
@@ -61,6 +68,7 @@ from repro_torch.core.aggregation import parse_reduction
 from repro_torch.core.energy import client_sharding
 from repro_torch.core.scheduling import shard_scheduler
 from repro_torch.core.trainer import FAULTS_UNDER_CLIENTS, FUSED_NEEDS_SGD
+from repro_torch.sharding.rules import DATA_AXES, MODEL_AXIS
 
 #: Default mesh-axis name for the flattened (scenario × seed) cell axis.
 CELL_AXIS = "cells"
@@ -69,6 +77,7 @@ CELL_AXIS = "cells"
 #: (any single-axis name works), the client axis is recognized by this
 #: name.
 CLIENT_AXIS = "clients"
+
 
 
 def _world() -> tuple[int, int]:
@@ -115,15 +124,20 @@ class Mesh:
     ranks : the grid of global ranks, one device a rank.
     coords : this rank's coordinates in ``ranks``, None when it is not in
         the mesh.
-    groups : one process group a cell row (the ranks along the last
-        axis) when the mesh has a ``clients`` axis and more than one
-        rank along it, else None for that row.
+    groups : one process group a row along the last axis (a cell row
+        of a ``clients`` mesh, a data row along ``"model"``) when the
+        mesh has a ``clients`` or ``"model"`` axis and more than one rank
+        along the last, else None for that row.
+    group : the process group of all the mesh's ranks when it has a
+        ``"model"``, ``"data"`` or ``"pod"`` axis and more than one rank,
+        else None.
     """
 
     axis_names: tuple
     ranks: np.ndarray
     coords: tuple | None = None
     groups: tuple = ()
+    group: object = None
 
     @property
     def shape(self) -> OrderedDict:
@@ -134,6 +148,17 @@ class Mesh:
     def size(self) -> int:
         return int(self.ranks.size)
 
+    @property
+    def row_group(self):
+        """The process group of this rank's row along the last axis
+        (None for a one-rank row, or when the rank is not in the mesh)."""
+        if not self.groups or self.coords is None:
+            return None
+        row = int(np.ravel_multi_index(self.coords[:-1],
+                                       self.ranks.shape[:-1])) \
+            if self.ranks.ndim > 1 else 0
+        return self.groups[row]
+
 
 _MESHES: dict = {}
 _MESH_LOCK = threading.Lock()
@@ -141,7 +166,8 @@ _MESH_LOCK = threading.Lock()
 
 def _make_mesh(grid, axis_names) -> Mesh:
     """The mesh over ``grid`` (an array of ranks), cached by layout. Its
-    row groups are made here, by every rank in the same order."""
+    row groups and its mesh group are made here, by every rank in the
+    same order."""
     grid = np.asarray(grid, dtype=np.int64)
     axis_names = tuple(axis_names)
     size, rank = _world()
@@ -156,13 +182,18 @@ def _make_mesh(grid, axis_names) -> Mesh:
                 f"have {device_topology()}")
         hit = np.argwhere(grid == rank)
         coords = tuple(int(i) for i in hit[0]) if len(hit) else None
-        groups = ()
-        if CLIENT_AXIS in axis_names and grid.ndim >= 1:
+        if MODEL_AXIS in axis_names and axis_names[-1] != MODEL_AXIS:
+            raise ValueError(f"the '{MODEL_AXIS}' axis must be a mesh's "
+                             f"last, as in jax.make_mesh; got {axis_names}")
+        groups, group = (), None
+        if ({CLIENT_AXIS, MODEL_AXIS} & set(axis_names)) and grid.ndim >= 1:
             rows = grid.reshape(-1, grid.shape[-1])
             groups = tuple(
                 dist.new_group(ranks=[int(r) for r in row])
                 if len(row) > 1 else None for row in rows)
-        mesh = Mesh(axis_names, grid, coords, groups)
+        if ({MODEL_AXIS, *DATA_AXES} & set(axis_names)) and grid.size > 1:
+            group = dist.new_group(ranks=[int(r) for r in grid.ravel()])
+        mesh = Mesh(axis_names, grid, coords, groups, group)
         _MESHES[key] = mesh
         return mesh
 
@@ -215,6 +246,23 @@ def make_grid_mesh(cells: int, clients: int, *, ranks=None) -> Mesh:
             f"{cells * clients} global ranks, have {device_topology(pool)}")
     grid = np.array(_rank_slice(cells * clients, pool)).reshape(cells, clients)
     return _make_mesh(grid, (CELL_AXIS, CLIENT_AXIS))
+
+
+def make_mesh(shape, axis_names=("data", MODEL_AXIS), *, ranks=None) -> Mesh:
+    """The counterpart of ``jax.make_mesh(shape, axis_names)``: the first
+    ``prod(shape)`` ranks (default: of the world; ``ranks=`` pins a
+    layout) in a grid of ``shape``, row-major. A ``"model"`` axis must be
+    the last; the mesh makes one process group a row along it and one
+    over all its ranks."""
+    shape = tuple(int(n) for n in shape)
+    pool = list(range(_world()[0])) if ranks is None \
+        else [int(r) for r in np.ravel(ranks)]
+    n = int(np.prod(shape))
+    if len(shape) != len(tuple(axis_names)) or n > len(pool):
+        raise ValueError(
+            f"make_mesh({shape}, {tuple(axis_names)}) needs {n} global "
+            f"ranks and one name an axis, have {device_topology(pool)}")
+    return _make_mesh(np.array(pool[:n]).reshape(shape), axis_names)
 
 
 def _ranks_by_host() -> list[list[int]]:
@@ -423,7 +471,7 @@ def _run_cells(sim, mesh, reduction, cells, params0, num_steps, eval_fn,
     context."""
     from repro_torch.experiments.engine import _run_cell
 
-    cell_ax, client_ax = _mesh_axes(mesh)
+    _, client_ax = _mesh_axes(mesh)
     if mesh.coords is None:
         return {}, False
     if client_ax is None:
@@ -433,12 +481,11 @@ def _run_cells(sim, mesh, reduction, cells, params0, num_steps, eval_fn,
     n_cap = int(sim.p.shape[0])
     shards = mesh.shape[client_ax]
     n_local = _check_client_shards(n_cap, shards)
-    row = mesh.coords[0] if cell_ax is not None else 0
     index = mesh.coords[-1]
     rows = slice(index * n_local, (index + 1) * n_local)
     out = {}
     with client_sharding(client_ax, shards, reduction, index=index,
-                         group=mesh.groups[row]):
+                         group=mesh.row_group):
         for c, (key, sch, en, _, pw, act) in cells.items():
             sch = shard_scheduler(_shard_fields(sch, n_cap, rows), n_local)
             en = _shard_fields(en, n_cap, rows)

@@ -7,6 +7,8 @@ from one module:
   cell mesh  : (D,)        axis ("cells",)   — scenario-grid sharding
   client mesh: (D,)        axis ("clients",) — within-cell client sharding
   grid mesh  : (Dc, Dn)    axes ("cells", "clients") — both, composed
+  model mesh : (Dd, Dm)    axes ("data", "model") — the expert-parallel
+               MoE layer's (``make_mesh``, as ``jax.make_mesh``)
 
 Each factory is a function, not a constant: building a mesh makes
 process groups, which needs the process group started first
@@ -24,6 +26,7 @@ from repro_torch.experiments.placement import (  # noqa: F401
     make_cell_mesh,
     make_client_mesh,
     make_grid_mesh,
+    make_mesh,
     make_multihost_mesh,
 )
 

@@ -1,28 +1,99 @@
-"""Shared model pieces: initializers, the dense layer, norms, rotary.
+"""Shared model pieces: the mesh context, initializers, the dense layer,
+norms, rotary.
 
-Port of ``repro.models.common`` without its sharding hints (the port
-runs on one card). Parameters are plain nested dicts of tensors; every layer is an
-``init_*(key, ...) -> params`` plus a pure apply function. Dense weights
-are ``(d_in, d_out)``, as in the JAX package.
+Port of ``repro.models.common``. Parameters are plain nested dicts of
+tensors; every layer is an ``init_*(key, ...) -> params`` plus a pure
+apply function. Dense weights are ``(d_in, d_out)``, as in the JAX
+package.
+
+The mesh context: :func:`use_mesh` is the port's ``with mesh:``, and
+:func:`current_mesh` reads it as the JAX package's does. Under a mesh of
+ranks (:func:`repro_torch.experiments.placement.make_mesh`) every rank
+runs the model on its own rows, replicated over ``"model"``: its block
+of the batch over the data axes (:func:`data_rows`) when they divide the
+batch, else every row. Only the MoE layer reads the mesh
+(:mod:`repro_torch.models.moe`). ``maybe_shard`` has no counterpart: it
+never changes a value, and a rank's tensors are its block already.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import random as trandom
 from repro_torch._tree import tree_leaves
+from repro_torch.sharding.rules import DATA_AXES, block_index
+
+_CONTEXT = threading.local()
 
 
-def normal_init(key, shape, dtype, stddev):
+@contextlib.contextmanager
+def use_mesh(mesh, *, batch=None):
+    """Run the model under ``mesh`` (None: no mesh) in this thread.
+
+    ``batch`` is the global batch. When the mesh's data axes divide it,
+    a tensor's batch axis holds this rank's block of rows
+    (:func:`data_rows`); otherwise, or without ``batch``, every row."""
+    previous = getattr(_CONTEXT, "value", None)
+    _CONTEXT.value = None if mesh is None else (mesh, batch)
+    try:
+        yield mesh
+    finally:
+        _CONTEXT.value = previous
+
+
+def current_mesh():
+    """The mesh of the innermost :func:`use_mesh`, or None."""
+    value = getattr(_CONTEXT, "value", None)
+    return None if value is None else value[0]
+
+
+def data_shards(mesh) -> int:
+    """The product of the mesh's data axes (1 without any)."""
+    sizes = dict(mesh.shape)
+    return sizes.get("pod", 1) * sizes.get("data", 1)
+
+
+def rows_split() -> bool:
+    """Whether, under the current mesh, a tensor's batch axis holds this
+    rank's block of rows over more than one data shard (:func:`use_mesh`'s
+    ``batch`` divides them)."""
+    value = getattr(_CONTEXT, "value", None)
+    if value is None or value[1] is None:
+        return False
+    dp = data_shards(value[0])
+    return dp > 1 and value[1] % dp == 0
+
+
+def data_rows(batch: int, mesh) -> slice:
+    """This rank's rows of a global batch of ``batch`` under ``mesh``: its
+    block over the data axes when they divide ``batch``, else all."""
+    dp = data_shards(mesh)
+    if dp == 1 or batch % dp:
+        return slice(0, batch)
+    axes = tuple(a for a in DATA_AXES if a in mesh.shape)
+    index, _ = block_index(axes, mesh)
+    size = batch // dp
+    return slice(index * size, (index + 1) * size)
+
+
+# ---------------------------------------------------------------- initializers
+
+def normal_init(key, shape, dtype, stddev, rows=None):
+    """``stddev``·N(0, 1) of ``shape`` in ``dtype``; ``rows`` (a slice of
+    the leading axis) draws those rows alone, with the bits they have in
+    the whole draw."""
     # In place: a full-width draw is not held twice in f32.
-    return trandom.normal(key, shape).mul_(stddev).to(dtype)
+    return trandom.normal(key, shape, rows=rows).mul_(stddev).to(dtype)
 
 
-def lecun_init(key, shape, dtype, fan_in=None):
+def lecun_init(key, shape, dtype, fan_in=None, rows=None):
     fan_in = fan_in or shape[0]
-    return normal_init(key, shape, dtype, fan_in ** -0.5)
+    return normal_init(key, shape, dtype, fan_in ** -0.5, rows=rows)
 
 
 def dense_init(key, d_in, d_out, dtype, use_bias=False, stddev=None):

@@ -28,8 +28,15 @@ first embeddings and M-RoPE's three position rows (qwen2-vl-2b), and
 the encoder-decoder with sinusoidal positions (whisper-tiny), whose
 encoder runs once a prefill and whose memory a decode step takes.
 
+Under a mesh of ranks (:func:`repro_torch.models.common.use_mesh`) the
+entry points run unchanged on this rank's rows; an MoE stack's experts
+are split over the ``"model"`` ranks (:func:`place_params`, or
+:func:`init_lm` with ``mesh=``), and the MoE layers take the
+expert-parallel path (:mod:`repro_torch.models.moe`).
+
 Public entry points:
-  init_lm / forward / per_example_loss      — training & prefill
+  init_lm / place_params                    — parameters (a rank's)
+  forward / per_example_loss                — training & prefill
   hidden_states                             — the stack output, pre-head
   init_decode_state / decode_step           — serving (1 token, KV cache)
   encode                                    — whisper encoder
@@ -50,15 +57,24 @@ from torch.utils.checkpoint import (
 
 from repro_torch import random as trandom
 from repro_torch._device import resolve_device
-from repro_torch._tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch._tree import (
+    tree_flatten,
+    tree_flatten_with_path,
+    tree_map,
+    tree_unflatten,
+)
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import moe
 from repro_torch.models.blocks import get_block
 from repro_torch.models.common import (
     apply_norm,
+    current_mesh,
     dense_init,
     norm_init,
     normal_init,
+    use_mesh,
 )
+from repro_torch.sharding.rules import shard_leaf
 
 
 def _sinusoidal_freqs(d_model, device=None):
@@ -134,9 +150,16 @@ def _init_segments(key, cfg: ArchConfig, superblock, n_super):
     return params
 
 
-def init_lm(key, cfg: ArchConfig):
+def init_lm(key, cfg: ArchConfig, *, mesh=None):
     """Parameters on ``key``'s device, drawn with the JAX package's
-    threefry bits (normal draws agree to f32 ``rtol=1e-5``)."""
+    threefry bits (normal draws agree to f32 ``rtol=1e-5``). With a
+    ``mesh`` of ranks, this rank's: an MoE layer's experts are its block
+    over ``"model"`` alone, drawn with their bits in the whole draw, so
+    ``init_lm(key, cfg, mesh=mesh)`` equals ``place_params(init_lm(key,
+    cfg), mesh)`` without holding the other experts."""
+    if mesh is not None:
+        with use_mesh(mesh):
+            return init_lm(key, cfg)
     k_embed, k_stack, k_head, k_enc = trandom.split(key, 4)
     params = {
         "embed": {"w": normal_init(k_embed, (cfg.vocab, cfg.d_model),
@@ -155,6 +178,30 @@ def init_lm(key, cfg: ArchConfig):
                                     key.device),
         }
     return params
+
+
+def place_params(params, mesh):
+    """This rank's parameters under ``mesh``: each MoE layer's expert
+    leaves (``moe/w_gate``, ``moe/w_up``, ``moe/w_down``) cut to the
+    rank's block of their expert axis over ``"model"``, as the JAX
+    package's in_spec ``P("model", None, None)`` places them, each a copy;
+    every other leaf as it is (the same tensor). A mesh whose ``"model"``
+    axis does not divide the experts leaves them whole: the MoE layer
+    then takes the global path (:mod:`repro_torch.models.moe`).
+    :func:`repro_torch.convert.params_from_jax` then this carries a JAX
+    tree into a rank."""
+    leaves, treedef = tree_flatten_with_path(params)
+
+    def one(path, leaf):
+        if not (len(path) > 1 and path[-2] == "moe"
+                and path[-1] in moe.EXPERT_LEAVES):
+            return leaf
+        if moe.expert_slice(leaf.shape[-3], mesh) is None:
+            return leaf
+        spec = (None,) * (leaf.dim() - 3) + ("model",)
+        return shard_leaf(leaf, spec, mesh).clone()
+
+    return tree_unflatten(treedef, [one(p, l) for p, l in leaves])
 
 
 # ------------------------------------------------------------------ apply
@@ -274,6 +321,8 @@ def hidden_states(params, cfg: ArchConfig, tokens, *, vision_embeds=None,
     encoder-decoder config). positions: (B, S), or (3, B, S) for M-RoPE;
     by default every row is ``arange(S)``."""
     b, s = tokens.shape
+    if cfg.n_experts and current_mesh() is not None:
+        moe.check_expert_shards(params["stack"], cfg.n_experts, b)
     x = _embed(params, cfg, tokens)
     if cfg.n_vision_tokens and vision_embeds is not None:
         nv = vision_embeds.shape[1]
@@ -395,6 +444,9 @@ def decode_step(params, cfg: ArchConfig, tokens, states, pos, *,
     memory: the encoder output of an encoder-decoder config
     (:func:`encode`). Returns (logits (B, vocab), states), the states
     updated in place."""
+    if cfg.n_experts and current_mesh() is not None:
+        moe.check_expert_shards(params["stack"], cfg.n_experts,
+                                tokens.shape[0])
     x = _embed(params, cfg, tokens)
     if cfg.pos_embed == "sinusoidal":
         pos_t = torch.full((1,), pos, dtype=torch.int64, device=x.device)

@@ -111,30 +111,40 @@ def fold_in(key, data) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def _draw(key, shape, dtype, convert) -> torch.Tensor:
+def _draw(key, shape, dtype, convert, rows=None) -> torch.Tensor:
     """``convert`` of 32 random bits per element of ``shape`` (partitionable
     mode: threefry of the flat element index, words xor-ed), into a
     tensor of ``dtype``. A batched key ``(..., 2)`` gives ``(...,) +
     shape``. The flat index is drawn ``DRAW_SLICE`` elements at a time,
     so the int64 and float64 temporaries of a draw stay a slice's size
     however large the draw; each element depends on its index alone, so
-    the slices give the bits of one draw."""
+    the slices give the bits of one draw. ``rows``, a slice of the
+    leading axis of ``shape``, draws those rows alone: their bits in the
+    whole draw."""
     shape = tuple(shape)
     n = math.prod(shape)
     if n >= 2 ** 32:
         raise NotImplementedError("more than 2**32 random words in one draw")
+    first, last = 0, n
+    if rows is not None:
+        r0, r1, step = rows.indices(shape[0])
+        if step != 1:
+            raise ValueError(f"rows must be a contiguous slice, got {rows}")
+        inner = n // shape[0] if shape[0] else 0
+        shape = (max(r1 - r0, 0),) + shape[1:]
+        first, last = r0 * inner, r0 * inner + math.prod(shape)
     k1, k2 = _words(key, 1)
     lead = key.shape[:-1]
-    if n <= DRAW_SLICE:
-        lo = torch.arange(n, dtype=torch.int64, device=key.device)
+    if last - first <= DRAW_SLICE:
+        lo = torch.arange(first, last, dtype=torch.int64, device=key.device)
         b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
         return convert(b1 ^ b2).reshape(lead + shape)
-    out = torch.empty(lead + (n,), dtype=dtype, device=key.device)
-    for start in range(0, n, DRAW_SLICE):
-        lo = torch.arange(start, min(n, start + DRAW_SLICE), dtype=torch.int64,
-                          device=key.device)
+    out = torch.empty(lead + (last - first,), dtype=dtype, device=key.device)
+    for start in range(first, last, DRAW_SLICE):
+        lo = torch.arange(start, min(last, start + DRAW_SLICE),
+                          dtype=torch.int64, device=key.device)
         b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
-        out[..., start:start + lo.numel()] = convert(b1 ^ b2)
+        out[..., start - first:start - first + lo.numel()] = convert(b1 ^ b2)
     return out.reshape(lead + shape)
 
 
@@ -167,16 +177,18 @@ def uniform(key, shape=(), minval=0.0, maxval=1.0) -> torch.Tensor:
                  lambda bits: _uniform_from_bits(bits, lo, hi))
 
 
-def normal(key, shape=()) -> torch.Tensor:
+def normal(key, shape=(), rows=None) -> torch.Tensor:
     """``jax.random.normal`` in float32: ``√2·erfinv(u)`` with ``u``
     uniform on the open interval (−1, 1). The uniform bits are JAX's;
-    ``erfinv`` is torch's, so values agree to a few ulps, not bitwise."""
+    ``erfinv`` is torch's, so values agree to a few ulps, not bitwise.
+    ``rows`` (a slice of the leading axis) draws those rows of the whole
+    draw alone (:func:`_draw`)."""
     lo = _on_device(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)).item(),
                     torch.float32, key.device)
     hi = _on_device(1.0, torch.float32, key.device)
     return _draw(key, shape, torch.float32,
                  lambda bits: torch.erfinv(_uniform_from_bits(bits, lo, hi))
-                 * math.sqrt(2.0))
+                 * math.sqrt(2.0), rows=rows)
 
 
 def randint(key, shape, minval, maxval) -> torch.Tensor:

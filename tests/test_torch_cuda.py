@@ -44,6 +44,13 @@ machine of two) run the launcher's quadratic job through K1 and K2
 and ``fused`` within ``rtol=1e-5, atol=1e-6``), and the last client
 shard, every row masked, gives exact zeros.
 
+Two ranks sharing the card over gloo (a card each over NCCL on a
+machine of two) serve a reduced phi3.5-moe in bf16 with its experts
+split over them (``tests/torch_moe_worker.py``): each rank's prefill
+launches K3 once a layer, routes every token as the one-rank prefill
+does, bit for bit, and its logits are within K3's bf16 tolerance of the
+one-rank prefill's.
+
 K4 (the gated-linear-recurrence scan) against its plain sequential
 version on the same inputs: ``max|K4 − plain| ≤ 1e-4·max|plain|``, as in
 ``chip_smoke.py``; strided views bitwise equal to contiguous copies.
@@ -1214,3 +1221,57 @@ def test_two_ranks_on_the_card(card, tmp_path):
             assert combo["compiles"] == 2 and combo["warm_new_compiles"] == 0
         assert rep["combos"]["cells"]["params_sha256"] == \
             reports[0]["combos"]["cells"]["params_sha256"]
+
+
+def test_expert_parallel_prefill_on_the_card(card, tmp_path):
+    """A reduced phi3.5-moe (2 MoE layers, 4 experts top-2, bf16, K3) on 2
+    ranks at ``(data 1, model 2)``, each drawing its 2 experts a layer
+    (``init_lm(..., mesh=)``), prefill and 2 greedy steps on all 4 rows:
+    K3 once a layer a rank, the routing of every token the one-rank
+    prefill's in this process bit for bit, the logits within
+    ``2**-7·max|one rank|`` (K3's bf16 tolerance) of it, both ranks
+    alike."""
+    from repro_torch.launch import distributed as dist
+
+    worker = str(Path(__file__).resolve().parent / "torch_moe_worker.py")
+    fa_ops.load()  # the ranks load the library built here
+    arch = "phi3.5-moe-42b-a6.6b"
+    kw = {"superblock": [["attn_moe", 2, False]], "use_flash": True,
+          "dtype_name": "bfloat16"}
+    cfg = get_config(arch).reduced().replace(
+        **dict(kw, superblock=(("attn_moe", 2, False),)))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (4, 64)).astype(
+        np.int32)
+    (tmp_path / "in").mkdir()
+    (tmp_path / "out").mkdir()
+    np.savez(tmp_path / "in" / "inputs.npz", **{"model/phi35/tokens": toks})
+    (tmp_path / "in" / "cases.json").write_text(json.dumps({
+        "layer": [], "refuse": [], "model": [{
+            "name": "phi35", "arch": arch, "cfg": kw, "mesh": [1, 2],
+            "steps": 2, "init": 0}]}))
+    dist.launch_simulated(2, command=[sys.executable, worker], argv=[
+        str(tmp_path / "in"), str(tmp_path / "out"), "cuda"], timeout=300)
+    ranks = [dict(np.load(tmp_path / "out" / f"ep_p{r}.npz"))
+             for r in range(2)]
+    params = transformer.init_lm(trandom.PRNGKey(0, device="cuda"), cfg)
+    moe.routing_log = []
+    try:
+        with torch.no_grad():
+            want = make_prefill_step(cfg)(
+                params, {"tokens": torch.from_numpy(toks).cuda()})
+        log = moe.routing_log
+    finally:
+        moe.routing_log = None
+    want = want.float().cpu().numpy()
+    assert len(log) == 2
+    for res in ranks:
+        assert int(res["phi35|launches"]) == 2
+        for i, (top_e, keep) in enumerate(log):
+            np.testing.assert_array_equal(res[f"phi35|prefill_top_e{i}"],
+                                          top_e.cpu().numpy())
+            np.testing.assert_array_equal(res[f"phi35|prefill_keep{i}"],
+                                          keep.cpu().numpy())
+        assert np.abs(res["phi35|prefill"] - want).max() <= \
+            2 ** -7 * np.abs(want).max()
+    for key in ranks[0]:
+        np.testing.assert_array_equal(ranks[0][key], ranks[1][key])

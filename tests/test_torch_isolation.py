@@ -63,7 +63,8 @@ def test_port_modules_include_the_experiments_engine():
                  "repro_torch.configs.phi35_moe_42b",
                  "repro_torch.configs.llama4_scout_17b",
                  "repro_torch._env", "repro_torch.experiments.placement",
-                 "repro_torch.launch.distributed", "repro_torch.launch.mesh"):
+                 "repro_torch.launch.distributed", "repro_torch.launch.mesh",
+                 "repro_torch.sharding", "repro_torch.sharding.rules"):
         assert name in modules
     scripts = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"examples_torch/quickstart.py", "examples_torch/paper_cifar.py",
