@@ -293,9 +293,37 @@ without printing its result line:
    layer: each MoE layer's output and routing
    against the one-rank ``apply_moe`` on its input with the layer's
    experts gathered from the row (within 2**-7 of its largest value,
-   every token routed alike). ``--ep-only`` runs this phase alone (for
-   four cards; on one, ``(1, 2)`` has no one-rank run to be held
-   against). Each line carries the card's name and power limit.
+   every token routed alike). After their serving meshes the ranks
+   train phi3.5-moe with its experts split over them
+   (``make_sgd_train_step`` / ``make_train_step`` under ``use_mesh``,
+   plain attention, remat, 8 clients, alg1's decision that masks a
+   client, the masked client's rows last, Zipf-Markov tokens from seed
+   1). One card, B 8 x S 1,024 at 1 of 32 layers cut from the ranks'
+   serving weights: ``(2, 1)`` SGD (lr 0.01, 2 steps; each rank all 16
+   experts and 4 rows, the gradients summed over the data group), then
+   ``(1, 2)`` adamw (1e-4, 3 steps; each rank 8 experts a layer). Four
+   cards, B 16: ``(1, 4)`` adamw 1e-4 at 1 layer (3 steps, held), then
+   at 6 layers (adamw 3e-5, the deepest a card holds; 5 steps, not held:
+   no card holds the one-rank model), ``(2, 2)`` adamw at 1.
+   Each step is timed and its ``all_reduce`` calls counted and timed
+   (bytes, ms); a rank prints its peak memory, losses (finite, falling)
+   and K3 launches (0: no backward). A held mesh's first step is held
+   against the same function stepped on one rank with no collective
+   (every row off a mesh; or each data shard's rows stepped alone, a
+   ``(dp, 1)`` layout, at 1/dp of the aux-loss weight, the gradients
+   summed), on the whole model: SGD's new params or adamw's first
+   moment (0.1 of the gradient), this rank's block of each leaf, each
+   leaf within 2x its floor (that reference's distance from itself in
+   f32, computed only when some leaf is not bitwise), bitwise leaves
+   counted; with every row on every rank (``(1, 2)``, ``(1, 4)``) step
+   0's loss bit for bit. After the steps
+   every leaf whole on the ranks of a row is the same bits on all of
+   them, an expert leaf on its column (sha256). The masked client's rows
+   given other tokens leave the update bitwise the same at capacity
+   factor E / top_k without the aux loss.
+   ``--ep-only`` runs this phase alone (for four cards; on one, ``(1,
+   2)``'s serving has no one-rank run to be held against). Each line
+   carries the card's name and power limit.
 16. Multimodal phase: qwen2-vl-2b (28 layers, 12 heads over 2 kv heads
    of 128, M-RoPE, 256 vision tokens) and whisper-tiny (4 encoder and 4
    decoder layers, 6 heads of 64, sinusoidal positions) at full width
@@ -351,7 +379,8 @@ without printing its result line:
    ``train_shape``; K3
    and K4 the recurrent phase's, ``recurrent_launches``; K3 the zoo,
    multimodal and ep phases', ``zoo_launches``, ``mm_launches`` and
-   ``ep_launches`` (a rank's prefill, by mesh); K4's
+   ``ep_launches`` (a rank's prefill by mesh, and its training steps,
+   ``train <mesh>``); K4's
    ``launches`` are the recurrent prefills', its K4 phase's count
    ``phase_launches``), then the result line.
 
@@ -4169,6 +4198,11 @@ def ep_tag(shape):
     return "x".join(map(str, shape))
 
 
+def ep_train_tag(shape, layers):
+    """A training run's name: its mesh's, and its depth past one layer."""
+    return ep_tag(shape) + (f" at {layers} layers" if layers > 1 else "")
+
+
 def ep_decode(torch, serve, params, cfg, tokens):
     """The zoo phase's decode on ``tokens``' rows: the first REC_PROMPT
     tokens fed one at a time through ``serve``, then EP_GREEDY greedy
@@ -4393,6 +4427,437 @@ def ep_mesh(torch, rt, mesh, cfg, params, held, tokens, device, reference):
     return out, arrays
 
 
+# Ep phase training, after the serving meshes: phi3.5-moe trained with
+# its experts split over the ranks (make_train_step / make_sgd_train_step
+# under use_mesh). An entry: the mesh, the layers (cut from the ranks'
+# serving weights), the optimizer, the steps, and whether the mesh is held
+# against a one-rank step on the same weights and batch. One card: (2, 1)
+# SGD (each rank all 16 experts and half the rows), then (1, 2) adamw.
+# Four cards: (1, 4) adamw at 1 layer, held against the one-rank step on
+# the experts gathered from the row, then at EP_TRAIN_DEEP layers (no card
+# holds that one-rank model), (2, 2) adamw at 1.
+# 6 layers is the deepest a card holds at B 16: an adamw step holds ≈ 28
+# B a parameter, 0.357e9 a layer a rank (4 of 16 experts) beside 0.263e9
+# of embeddings, so 2.40e9 x 28 B ≈ 67 GB plus ≈ 6 GB of activations
+# (4 layers peaked at 53.42 GB, PERF.md §6, PR 30); a 7th adds 10 GB.
+EP_SGD_STEPS, EP_ADAMW_STEPS, EP_TRAIN_DEEP = 2, 3, 6
+# At 6 layers adamw 1e-4 (no warm-up) swung the loss 10.78, 12.94, 11.20,
+# 12.46, 10.84 over five steps (PERF.md §6, PR 30): 3e-5 there, five steps.
+EP_DEEP_STEPS, EP_DEEP_LR = 5, 3e-5
+# SGD at 0.01, not make_sgd_train_step's default 0.05 (the paper's CNN
+# step): at phi3.5's full width 0.05's first step threw the loss from
+# 10.79 up to 11.93 at (2, 1) (PERF.md §6, PR 30).
+EP_SGD_LR = 0.01
+EP_TRAIN_ONE = (((2, 1), 1, ("sgd", EP_SGD_LR), EP_SGD_STEPS, True),
+                ((1, 2), 1, ("adamw", TRAIN_LR), EP_ADAMW_STEPS, True))
+EP_TRAIN_FOUR = (
+    ((1, 4), 1, ("adamw", TRAIN_LR), EP_ADAMW_STEPS, True),
+    ((1, 4), EP_TRAIN_DEEP, ("adamw", EP_DEEP_LR), EP_DEEP_STEPS, False),
+    ((2, 2), 1, ("adamw", TRAIN_LR), EP_ADAMW_STEPS, True))
+# The global batch a world trains on (x TRAIN_SEQ tokens), TRAIN_CLIENTS
+# clients, the masked one's rows last. One card holds B 8 beside the two
+# ranks' adamw states (≈ 26 GB each at 1 layer).
+EP_TRAIN_BATCH = {2: 8, 4: 16}
+
+
+def ep_cut(params, layers):
+    """The first ``layers`` layers of a stack, each leaf a copy (the rest
+    of the serving weights can go); the other leaves as they are."""
+    from repro_torch._tree import tree_map
+
+    return dict(params, stack=tree_map(lambda x: x[:layers].clone(),
+                                       params["stack"]))
+
+
+def ep_whole_experts(torch, params, mesh):
+    """``params`` with each expert leaf gathered from the rank's row: the
+    one-rank model (four cards, where no rank holds the whole)."""
+    import torch.distributed as tdist
+
+    from repro_torch._tree import tree_flatten_with_path, tree_unflatten
+    from repro_torch.models import moe
+
+    if mesh.row_group is None:
+        return params
+
+    def gather(w):
+        parts = [torch.empty_like(w) for _ in range(mesh.shape["model"])]
+        tdist.all_gather(parts, w.contiguous(), group=mesh.row_group)
+        return torch.cat(parts, dim=-3)
+
+    leaves, treedef = tree_flatten_with_path(params)
+    return tree_unflatten(treedef, [
+        gather(x) if p[-2:-1] == ("moe",) and p[-1] in moe.EXPERT_LEAVES
+        else x for p, x in leaves])
+
+
+def ep_train_batch(torch, rt, cfg, b, masked):
+    """B = ``b`` Zipf-Markov rows of TRAIN_SEQ + 1 tokens (seed 1), each of
+    the TRAIN_CLIENTS clients b / TRAIN_CLIENTS rows, the last masked
+    client's rows last; the same rows with that client's tokens replaced;
+    and the number replaced."""
+    mask, _ = masked
+    client = int((mask == 0).nonzero()[-1])
+    order = [c for c in range(TRAIN_CLIENTS) if c != client] + [client]
+    ids = torch.tensor(order, device=DEVICE).repeat_interleave(
+        b // TRAIN_CLIENTS).to(torch.int32)
+    raw = torch.from_numpy(rt.data.make_lm_tokens(
+        1, b, TRAIN_SEQ, cfg.vocab).tokens).to(DEVICE)
+    other, n_rows = replace_rows(torch, raw, ids, client, cfg.vocab)
+    return lm_batch(raw, ids), lm_batch(other, ids), n_rows
+
+
+class EpCollectives:
+    """Every ``torch.distributed.all_reduce`` while it is entered (the MoE
+    layer's, the trainer's data-group sum, the aux's): count, bytes and
+    wall ms, the card synchronised on both sides of each."""
+
+    def __init__(self, torch):
+        import torch.distributed as tdist
+
+        self.torch, self.dist, self.calls = torch, tdist, []
+
+    def __enter__(self):
+        real = self.real = self.dist.all_reduce
+
+        def timed_all_reduce(t, *args, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(t, *args, **kw)
+            self.torch.cuda.synchronize()
+            self.calls.append((t.numel() * t.element_size(),
+                               (time.perf_counter() - t0) * 1e3))
+            return out
+
+        self.dist.all_reduce = timed_all_reduce
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce = self.real
+
+
+def ep_optimizer(rt, opt):
+    """The optimizer of an ``(kind, lr)`` pair."""
+    kind, lr = opt
+    return rt.optim.sgd(lr) if kind == "sgd" else rt.optim.adamw(lr)
+
+
+def ep_step_fn(rt, cfg, opt, cf=None, aux=None):
+    """(init, step) of the mesh's optimizer ``opt``, ``(kind, lr)``:
+    ``make_sgd_train_step`` or ``make_train_step`` (adamw); with ``aux``,
+    ``build_energy_train_step`` at that aux-loss weight and capacity
+    factor ``cf``."""
+    from repro_torch.core.trainer import build_energy_train_step
+    from repro_torch.launch.steps import make_sgd_train_step, make_train_step
+    from repro_torch.models import transformer
+
+    if aux is not None:
+        c = cfg.replace(moe_capacity_factor=cf)
+        return build_energy_train_step(
+            per_example_loss_fn=lambda p, b: transformer.per_example_loss(
+                p, c, b), optimizer=ep_optimizer(rt, opt),
+            n_clients=TRAIN_CLIENTS, aux_loss_weight=aux)
+    kind, lr = opt
+    if kind == "sgd":
+        return make_sgd_train_step(cfg, TRAIN_CLIENTS, lr=lr)
+    return make_train_step(cfg, TRAIN_CLIENTS, lr=lr)
+
+
+def ep_held_leaves(kind, state):
+    """What the hold compares after a step: SGD's new params, adamw's
+    first moment (0.1 of the gradient)."""
+    return state.params if kind == "sgd" else state.opt_state.mu
+
+
+def ep_reference(torch, rt, cfg, opt, params, batch, mask, scale, dp):
+    """The mesh's function stepped once on one rank with no collective:
+    every row off a mesh when ``dp`` is 1, else each data shard's rows
+    alone (a ``(dp, 1)`` layout of no process group: its rows, the
+    global batch's coefficients, its capacity) at 1/dp of the aux-loss
+    weight, their gradients summed; then the optimizer's first step.
+    Returns the held leaves (:func:`ep_held_leaves`) and the metrics of
+    the step off the mesh (dp 1)."""
+    import numpy as np
+
+    from repro_torch._tree import tree_map
+    from repro_torch.core.trainer import build_energy_train_step
+    from repro_torch.experiments import placement
+    from repro_torch.models import transformer
+    from repro_torch.models.common import use_mesh
+
+    keep = rt.optim.Optimizer(
+        init=lambda p: (), update=lambda g, s, p=None: (
+            tree_map(torch.zeros_like, g), g))
+    init, step = build_energy_train_step(
+        per_example_loss_fn=lambda p, b: transformer.per_example_loss(
+            p, cfg, b), optimizer=keep, n_clients=TRAIN_CLIENTS,
+        aux_loss_weight=0.01 / dp)
+    metrics, grads = None, None
+    for d in range(dp):
+        layout = placement.Mesh(("data", "model"),
+                                np.arange(dp).reshape(dp, 1), (d, 0))
+        with use_mesh(layout if dp > 1 else None,
+                      batch=batch["client_ids"].shape[0]):
+            state, m = step(init(params), batch, mask, scale)
+        metrics = m if dp == 1 else None
+        grads = state.opt_state if grads is None else tree_map(
+            torch.add, grads, state.opt_state)
+        del state
+    # The optimizer's first step leaf by leaf: a whole adamw state of the
+    # one-rank model would not fit beside the other rank.
+    optimizer = ep_optimizer(rt, opt)
+
+    def first_step(g, p):
+        updates, state = optimizer.update(g, optimizer.init(p), p)
+        return (rt.optim.apply_updates(p, updates) if opt[0] == "sgd"
+                else state.mu)
+
+    held = tree_map(first_step, grads, params)
+    del grads
+    return held, metrics
+
+
+def ep_floors(torch, rt, mesh, cfg, opt, whole, batches, masked, ref):
+    """Each held leaf's floor, on rank 0, sent to every rank: the bf16
+    reference's (``ref``, on the host) largest distance from the same
+    reference in f32."""
+    import torch.distributed as tdist
+
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.models.common import data_shards
+
+    box = [None]
+    if tdist.get_rank() == 0:
+        deterministic(torch, True)
+        whole32 = tree_map(lambda x: x.float(), whole)
+        held32, _ = ep_reference(torch, rt, cfg.replace(dtype_name="float32"),
+                                 opt, whole32, batches[0], *masked,
+                                 data_shards(mesh))
+        del whole32
+        box = [[(a.to(b.device).float() - b).abs().max().item()
+                for (_, a), b in zip(ref, tree_leaves(held32))]]
+        del held32
+        deterministic(torch, False)
+        torch.cuda.empty_cache()
+    tdist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def ep_mine(torch, mesh, path, x):
+    """This rank's block of a whole-model leaf: an expert leaf's slice
+    over "model" when the mesh cuts the experts."""
+    from repro_torch.models import moe
+
+    if path[-2:-1] == ("moe",) and path[-1] in moe.EXPERT_LEAVES:
+        rows = moe.expert_slice(x.shape[-3], mesh)
+        if rows is not None:
+            return x[..., rows, :, :]
+    return x
+
+
+def ep_train_reference(torch, rt, mesh, cfg, opt, whole, batches, masked):
+    """The one-rank step a training mesh is held against, on this rank:
+    :func:`ep_reference` on the whole model ``whole``, its leaves moved to
+    the host. Returns (leaves, the step's loss or None, s)."""
+    from repro_torch._tree import tree_flatten_with_path
+    from repro_torch.models.common import data_shards
+
+    t0 = time.perf_counter()
+    deterministic(torch, True)
+    ref, metrics = ep_reference(torch, rt, cfg, opt, whole, batches[0],
+                                *masked, data_shards(mesh))
+    ref = [(p, x.cpu()) for p, x in tree_flatten_with_path(ref)[0]]
+    loss = None if metrics is None else metrics["loss"].item()
+    deterministic(torch, False)
+    torch.cuda.empty_cache()
+    return ref, loss, time.perf_counter() - t0
+
+
+def ep_hold_leaves(torch, mesh, got, ref):
+    """The mesh's held leaves after its first step against the
+    reference's (this rank's block of each), leaf by leaf on the card:
+    the leaves, and the largest distance of each that is not bitwise
+    (by its index)."""
+    from repro_torch._tree import tree_flatten_with_path
+
+    got = tree_flatten_with_path(got)[0]
+    dists = {}
+    for i, ((path, x), (rpath, r)) in enumerate(zip(got, ref)):
+        check(path == rpath, f"ep train: leaf {path} against {rpath}")
+        r = ep_mine(torch, mesh, path, r).to(x.device)
+        if not torch.equal(x, r):
+            dists[i] = (x.float() - r.float()).abs().max().item()
+    return {"leaves": len(got), "dists": dists}
+
+
+def ep_judge(held, ref, floors):
+    """The hold's verdict: bitwise leaves, the largest distance over its
+    leaf's floor and that leaf, the leaves past 2x their floor."""
+    worst, bad = (0.0, ""), []
+    for i, dist in held["dists"].items():
+        name = "/".join(map(str, ref[i][0]))
+        ratio = dist / floors[i] if floors[i] > 0 else math.inf
+        worst = max(worst, (ratio, name))
+        if ratio > 2:
+            bad.append((name, dist, floors[i]))
+    return {"leaves": held["leaves"],
+            "bitwise": held["leaves"] - len(held["dists"]),
+            "worst": list(worst), "past": bad}
+
+
+def ep_train_mesh(torch, rt, mesh, cfg, opt, steps, params, ref, batches,
+                  masked, decisions):
+    """One training mesh on this rank (module docstring): the mesh's
+    ``steps`` steps with their collectives, the first held against the
+    reference (``ep_train_reference``, or None), the leaves' sha256 after
+    them, and the masked client's rows. Returns the numbers."""
+    from repro_torch._tree import tree_flatten_with_path, tree_leaves
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import moe
+    from repro_torch.models.common import data_shards, use_mesh
+
+    batch, other, n_rows = batches
+    mask, scale = masked
+    b = batch["client_ids"].shape[0]
+    dp, tp = data_shards(mesh), mesh.shape["model"]
+    kind = opt[0]
+    out = {"kind": kind, "lr": opt[1], "layers": cfg.n_layers, "batch": b,
+           "mesh": list(mesh.shape.values()),
+           "rows": b // dp, "n_rows_replaced": n_rows,
+           "params": sum(x.numel() for x in tree_leaves(params)),
+           "experts_a_layer": int(next(
+               x for p, x in tree_flatten_with_path(params)[0]
+               if p[-1] == "w_gate").shape[-3])}
+    deterministic(torch, True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    init, step = ep_step_fn(rt, cfg, opt)
+    losses, ms, calls = [], [], []
+    fa_ops.reset_launch_counts()
+    with use_mesh(mesh, batch=b):
+        state = init(params)
+        for i in range(steps):
+            m_i, s_i = ((mask, scale) if i == 0
+                        else decisions[(i - 1) % len(decisions)])
+            with EpCollectives(torch) as coll:
+                (state, metrics), step_ms = timed(
+                    torch, lambda: step(state, batch, m_i, s_i))
+            ms.append(step_ms)
+            calls.append(coll.calls)
+            losses.append(metrics["loss"].item())
+            if i == 0:
+                out["first_metrics"] = {k: v.item()
+                                        for k, v in metrics.items()}
+                if ref is not None:
+                    out["held"] = ep_hold_leaves(
+                        torch, mesh, ep_held_leaves(kind, state), ref[0])
+    out["step_ms"] = ms
+    out["losses"] = losses
+    out["collectives"] = [[(n, round(t, 3)) for n, t in c] for c in calls]
+    out["k3_launches"] = fa_ops.launch_counts["flash_attention"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # Each leaf's sha256 after the steps: a leaf whole on every rank of a
+    # row must be the same bits on every rank (the rows' gradients summed
+    # over the data shards), an expert leaf on the ranks of a column.
+    out["sha256"] = {"/".join(map(str, p)): params_sha256(torch, x)
+                     for p, x in tree_flatten_with_path(state.params)[0]}
+    out["expert_leaves"] = [
+        "/".join(map(str, p)) for p, _ in tree_flatten_with_path(
+            state.params)[0]
+        if tp > 1 and p[-2:-1] == ("moe",) and p[-1] in moe.EXPERT_LEAVES]
+    del state, ref
+    torch.cuda.empty_cache()
+    # The masked client's rows: capacity factor E / top_k (every token
+    # kept), the aux loss off; the first update waits on the host.
+    t0 = time.perf_counter()
+    init, step = ep_step_fn(rt, cfg, opt, cf=cfg.n_experts / cfg.top_k,
+                            aux=0.0)
+    # SGD's held leaves are its params, compared once, on the card.
+    kept = ((lambda s: [tree_leaves(s.params)]) if kind == "sgd" else
+            (lambda s: [tree_leaves(s.params), tree_leaves(s.opt_state.mu)]))
+    with use_mesh(mesh, batch=b):
+        moe.reset_dispatch_counts()
+        first = kept(step(init(params), batch, mask, scale)[0])
+        if kind != "sgd":
+            first = [[x.cpu() for x in xs] for xs in first]
+        second = kept(step(init(params), other, mask, scale)[0])
+        out["masked_dropped"] = moe.dropped_share()
+    out["masked_moved"] = update_moved(first, second)
+    out["masked_cf"] = cfg.n_experts / cfg.top_k
+    out["masked_s"] = time.perf_counter() - t0
+    del first, second
+    deterministic(torch, False)
+    torch.cuda.empty_cache()
+    return out
+
+
+
+def ep_any_rank(torch, flag):
+    """Whether ``flag`` holds on any rank of the world (collective)."""
+    import torch.distributed as tdist
+
+    t = torch.tensor([int(flag)], device=DEVICE)
+    tdist.all_reduce(t, op=tdist.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def ep_train(torch, rt, cfg, plan, cuts, size):
+    """The ep phase's training on this rank (module docstring), mesh by
+    mesh of ``plan``, on the weights cut from the serving meshes
+    (``cuts``: on one card the whole model's first layer, which every
+    mesh starts from; on four each mesh's own rank weights, whose experts
+    the held mesh gathers from its row for the one-rank model). Returns
+    each mesh's numbers."""
+    from repro_torch.experiments import placement
+    from repro_torch.models import transformer
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    masked, decisions, _ = alg1_decisions(torch, rt, EP_ADAMW_STEPS - 1)
+    b = EP_TRAIN_BATCH[size]
+    batches = ep_train_batch(torch, rt, cfg, b, masked)
+    runs = {"batch_s": time.perf_counter() - t0}
+    one = cuts.pop("whole", None)
+    # A mesh's serving weights serve each of its runs, the deepest last.
+    uses = {}
+    for shape, *_ in plan:
+        uses[ep_tag(shape)] = uses.get(ep_tag(shape), 0) + 1
+    for shape, layers, opt, steps, held in plan:
+        tag = ep_train_tag(shape, layers)
+        mesh = placement.make_mesh(shape)
+        tcfg = cfg.replace(n_layers=layers, use_flash=False)
+        t0 = time.perf_counter()
+        if one is not None:
+            params, whole = transformer.place_params(one, mesh), one
+            if shape[-1] > 1:
+                one = None  # the last mesh to start from the whole model
+        else:
+            uses[ep_tag(shape)] -= 1
+            params = (ep_cut(cuts[ep_tag(shape)], layers)
+                      if uses[ep_tag(shape)] else cuts.pop(ep_tag(shape)))
+            whole = ep_whole_experts(torch, params, mesh) if held else None
+        ref = (ep_train_reference(torch, rt, mesh, tcfg, opt, whole, batches,
+                                  masked) if held else None)
+        run = ep_train_mesh(torch, rt, mesh, tcfg, opt, steps, params, ref,
+                            batches, masked, decisions)
+        if ref is not None:
+            run["reference_loss"], run["reference_s"] = ref[1], ref[2]
+            # The floors in f32 only where a leaf on some rank is not the
+            # reference's bits.
+            t1 = time.perf_counter()
+            floors = [0.0] * run["held"]["leaves"]
+            if ep_any_rank(torch, bool(run["held"]["dists"])):
+                floors = ep_floors(torch, rt, mesh, tcfg, opt, whole,
+                                   batches, masked, ref[0])
+            run["held"] = ep_judge(run["held"], ref[0], floors)
+            run["floors_s"] = time.perf_counter() - t1
+        run["s"] = time.perf_counter() - t0
+        runs[tag] = run
+        del params, ref, whole
+        torch.cuda.empty_cache()
+    return runs
+
+
 def ep_child(out):
     """A rank of the ep phase (``--ep-child``, started by
     ``launch_simulated``; the rank from the ``REPRO_DIST_*`` environment):
@@ -4408,6 +4873,9 @@ def ep_child(out):
     import torch.distributed as tdist
 
     t_setup = time.perf_counter()
+    # The training's peaks on two ranks sharing the card: no memory held
+    # in segments too small for the next block.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     rt = load_port()
     from repro_torch.experiments import placement
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -4431,13 +4899,21 @@ def ep_child(out):
               "setup_s": time.perf_counter() - t_setup, "meshes": {}}
     t_run = time.perf_counter()
     tokens = ep_tokens(torch, rt, cfg, device)
-    whole = None
+    train_plan = EP_TRAIN_FOUR if size == 4 else EP_TRAIN_ONE
+    train_layers = {}
+    for shape, layers, *_ in train_plan:
+        train_layers[ep_tag(shape)] = max(
+            layers, train_layers.get(ep_tag(shape), 0))
+    whole, cuts = None, {}
     for mesh, (shape, layers, held) in zip(meshes, plan):
         tag = ep_tag(shape)
         layer_cfg = cfg.replace(n_layers=layers, use_flash=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if whole is not None:
+            # The training's one-card model: the whole model's first
+            # layer, before the rest of it goes.
+            cuts["whole"] = ep_cut(whole, 1)
             params = transformer.place_params(whole, mesh)
             how = "place_params: its experts cut from the whole model"
         else:
@@ -4454,6 +4930,8 @@ def ep_child(out):
                               tokens, device,
                               reference=size == 2 and shape[0] > 1)
         report["meshes"][tag] = dict(run, init_ms=init_ms, init=how)
+        if size == 4 and tag in train_layers:
+            cuts[tag] = ep_cut(params, train_layers[tag])
         del params
         np.savez(os.path.join(out, f"{tag}_p{rank}.npz"), **arrays)
     if size == 2 and rank == 0:
@@ -4462,6 +4940,8 @@ def ep_child(out):
         report["bmm_bitwise"] = ep_bmm_bitwise(
             torch, device, cfg.n_experts, int(rows // cfg.n_experts), d,
             cfg.d_ff)
+    report["serve_s"] = time.perf_counter() - t_run
+    report["train"] = ep_train(torch, rt, cfg, train_plan, cuts, size)
     report["run_s"] = time.perf_counter() - t_run
     with open(os.path.join(out, f"report_p{rank}.json"), "w") as f:
         json.dump(report, f, indent=1, sort_keys=True)
@@ -4694,6 +5174,110 @@ def ep_phase(torch, ep, card):
                   f"shards' own {want:.7f} ({shard}) {tag_card}")
             check(all(abs(x - want) <= 1e-6 * max(1.0, abs(want)) for x in aux),
                   f"ep {tag}: aux {aux} against the shards' mean {want}")
+    for rank, counts in ep_train_report(reports, n_experts, tag_card).items():
+        launches[rank].update(counts)
+    return launches
+
+
+def ep_train_report(reports, n_experts, tag_card):
+    """The ep phase's training (module docstring), each mesh's lines and
+    checks. Returns K3's launches in the training steps, by rank and
+    mesh (``train <mesh>``)."""
+    import numpy as np
+
+    launches, fails = {}, []
+
+    def want(cond, what):
+        # Every line prints before any check fails.
+        if not cond:
+            fails.append(what)
+
+    for tag in (t for t in reports[0]["train"] if "x" in t):
+        runs = [r["train"][tag] for r in reports]
+        r0 = runs[0]
+        tp = r0["mesh"][-1]
+        opt = (f"make_sgd_train_step, sgd {r0['lr']}" if r0["kind"] == "sgd"
+               else f"make_train_step, adamw {r0['lr']}")
+        for r, run in zip(reports, runs):
+            launches.setdefault(f"rank{r['rank']}", {})[f"train {tag}"] = \
+                run["k3_launches"]
+            ms = run["step_ms"]
+            med = float(np.median(ms[1:])) if len(ms) > 1 else ms[0]
+            colls = "; ".join(
+                f"step {i + 1}: {len(c)} all_reduce, "
+                f"{sum(n for n, _ in c) / 1e6:.1f} MB, "
+                f"{sum(t for _, t in c):.1f} ms"
+                for i, c in enumerate(run["collectives"]))
+            print(f"ep train {tag} rank {r['rank']}: {opt}, {len(ms)} steps, "
+                  f"phi3.5-moe at {run['layers']} of 32 layers (d_model "
+                  f"{reports[0]['d_model']}, bf16, remat, plain attention), "
+                  f"B {run['batch']} x S {TRAIN_SEQ} ({run['rows']} rows a "
+                  f"rank), {run['experts_a_layer']} of {n_experts} experts a "
+                  f"layer, {run['params']:,} parameters a rank; step ms "
+                  + " ".join(f"{x:.1f}" for x in ms) + f" (median after the "
+                  f"first {med:.1f}); peak {run['peak_gb']:.2f} GB; losses "
+                  f"{[round(x, 4) for x in run['losses']]}; {colls} (each "
+                  f"timed with the card synchronised around it); "
+                  f"{run['k3_launches']} K3 launches; {run['s']:.1f} s with "
+                  f"the reference and the masked check {tag_card}")
+            want(run["k3_launches"] == 0, f"ep train {tag}: K3 launched "
+                  f"{run['k3_launches']} times in training")
+            losses = run["losses"]
+            want(all(math.isfinite(x) for x in losses)
+                  and losses[-1] < losses[0],
+                  f"ep train {tag} rank {r['rank']}: losses {losses}")
+        # The leaves whole on every rank are the same bits on all of them
+        # (a row's ranks compute them alike, the data shards' gradients
+        # are summed); the experts on the ranks of a column.
+        split = set(r0["expert_leaves"])
+        differ = sorted(
+            name for name in r0["sha256"]
+            for group in ([runs[m::tp] for m in range(tp)] if name in split
+                          else [runs])
+            if len({run["sha256"][name] for run in group}) > 1)
+        want(not differ, f"ep train {tag}: leaves that differ across the "
+              f"ranks that should hold the same bits: {differ}")
+        held = "held" in r0
+        if held:
+            for r, run in zip(reports, runs):
+                h = run["held"]
+                print(f"ep train {tag} rank {r['rank']} held against the "
+                      f"one-rank step ({'every row off a mesh' if run['rows'] == run['batch'] else 'each data shard stepped alone, the gradients summed'}; "
+                      f"{'params after SGD' if run['kind'] == 'sgd' else 'adamw first moment'}"
+                      f", this rank's block of each leaf): {h['bitwise']} of "
+                      f"{h['leaves']} leaves bitwise, the largest distance "
+                      f"{h['worst'][0]:.3g}x its floor ({h['worst'][1] or '-'}"
+                      f"); loss {run['first_metrics']['loss']:.6f}, the "
+                      f"one-rank step's "
+                      + ("-" if run["reference_loss"] is None
+                         else f"{run['reference_loss']:.6f}")
+                      + f"; the reference {run['reference_s']:.1f} s, its "
+                      f"f32 floors {run['floors_s']:.1f} s (0 where every "
+                      f"leaf is bitwise) {tag_card}")
+                want(not h["past"], f"ep train {tag} rank {r['rank']}: "
+                      f"leaves past 2x their floor {h['past']}")
+                if run["reference_loss"] is not None:
+                    want(run["first_metrics"]["loss"] == run["reference_loss"],
+                          f"ep train {tag}: step 0's loss "
+                          f"{run['first_metrics']['loss']} against the "
+                          f"one-rank step's {run['reference_loss']}")
+        for r, run in zip(reports, runs):
+            moved = run["masked_moved"]
+            want(run["masked_dropped"] == 0.0 and all(
+                n == 0 for n, _ in moved), f"ep train {tag} rank {r['rank']}: "
+                f"the masked client's rows moved the update {moved} (dropped "
+                f"{run['masked_dropped']})")
+        print(f"ep train {tag}: the leaves whole on every rank bit-equal "
+              f"across the {len(runs)} ranks after the steps (sha256), the "
+              f"experts across each column; "
+              + ("every held leaf within 2x its floor; " if held else
+                 "not held (no card holds the one-rank model); ")
+              + f"the masked client's {r0['n_rows_replaced']} rows (last) "
+              f"given other tokens leave the update bitwise the same on "
+              f"every rank (capacity factor {r0['masked_cf']}, nothing "
+              f"dropped, the aux loss off; "
+              f"{max(run['masked_s'] for run in runs):.1f} s) {tag_card}")
+    check(not fails, "; ".join(fails))
     return launches
 
 
@@ -4706,7 +5290,8 @@ def ep_only(torch, rt, fa_ops, card, kind, phase, seconds):
     ep = ep_start(torch)
     phase("ep wait", ep_wait, ep)
     launches = phase("ep", ep_phase, torch, ep, card)
-    print(f"ep only: K3 launches a prefill {json.dumps(launches)}; phase "
+    print(f"ep only: K3 launches a prefill, and in training, "
+          f"{json.dumps(launches)}; phase "
           f"seconds: {json.dumps(seconds)} on {kind} [{card}]")
     return 0
 

@@ -29,7 +29,11 @@ it drew before, and ``faults=None`` adds no work to a step.
 (``repro_torch.launch.train``): one global batch whose examples belong
 to clients, the paper's weighting as a coefficient on each example's
 loss (:func:`~repro_torch.core.aggregation.per_example_coefficients`),
-gradients by ``torch.autograd``.
+gradients by ``torch.autograd``. Under a mesh of ranks
+(:func:`repro_torch.models.common.use_mesh`, the JAX package's ``with
+mesh:``) each rank passes the global batch and steps its own rows when
+the data axes divide them, and the gradients are summed over its data
+shards (the step's docstring).
 
 **Client-axis sharding** (DESIGN.md §8): inside a
 :func:`repro_torch.core.energy.client_sharding` context this rank runs
@@ -60,12 +64,19 @@ from repro_torch.core import aggregation
 from repro_torch.core.energy import client_shard, shard_all_gather
 from repro_torch.core.faults import FAULT_SALT
 from repro_torch.core.scheduling import Decision
+from repro_torch.models.common import current_mesh, data_rows, rows_split
 from repro_torch.optim import Optimizer, apply_updates
 
 
 FAULTS_UNDER_CLIENTS = (
     "fault injection is not supported under a clients mesh axis "
     "(DESIGN.md §10) — use a cells-only mesh or drop the fault component")
+FLAT_UNDER_MESH = (
+    "flat=True keeps the optimizer state as one (P,) buffer, which cannot "
+    "follow the parameters' placement over a mesh: leave flat off for "
+    "sharded training, whose per-leaf optimizer state follows each "
+    "leaf's placement (the JAX package's build_energy_train_step says "
+    "the same of its PartitionSpecs)")
 FUSED_NEEDS_SGD = (
     "reduction 'fused' bundles the SGD parameter update into the reduction "
     "kernel and needs a plain sgd() optimizer (kind='sgd'); use 'psum' for "
@@ -398,6 +409,21 @@ def build_energy_train_step(
     :func:`repro_torch.core.aggregation.fused_flat_sgd_update` as a
     one-row stack with unit weight: one launch of kernel K2 when
     ``use_kernel`` (its plain version for CPU tensors).
+
+    Under a mesh of ranks (:func:`repro_torch.models.common.use_mesh`
+    with the global batch ``B``), the JAX package's ``make_train_step``
+    under ``with mesh:``: every rank passes the global batch and
+    decision. When the data axes divide ``B`` (``rows_split``), the rank
+    steps its own rows (:func:`~repro_torch.models.common.data_rows`,
+    every batch leaf cut along its first axis) with their coefficients
+    from the global ``client_ids`` and ``B``, and each gradient leaf is
+    summed over the rank's data group (the ranks that share its
+    ``"model"`` index): a leaf cut over ``"model"`` is the rank's own,
+    and a leaf whole on a row is equal along it. Otherwise every rank
+    steps every row and sums nothing. The metrics are the global ones,
+    equal on every rank. A layout with no process group (a ``Mesh`` built
+    by hand) steps its rows alone and sums nothing: one data shard's part
+    of the step. ``flat=True`` under a mesh raises.
     """
     if p is None:
         p = torch.full((n_clients,), 1.0 / n_clients, dtype=torch.float32)
@@ -409,34 +435,60 @@ def build_energy_train_step(
             placed[device] = p.to(device)
         return placed[device]
 
-    def loss_fn(params, batch, weights):
-        out = per_example_loss_fn(params, batch)
-        aux = None
-        if isinstance(out, tuple):
-            losses, aux = out
-        else:
-            losses = out
-        bsz = losses.shape[0]
+    def loss_fn(params, batch, weights, rows, group):
+        """(total, mean loss, weighted loss) of the global ``batch``: the
+        total of its ``rows`` (the rank's, or None for all) to
+        differentiate, and the two metrics of every row, their sums
+        taken over ``group`` (the rank's data shards) when it has one."""
+        bsz = batch["client_ids"].shape[0]
         coeff = aggregation.per_example_coefficients(
             batch["client_ids"], weights, bsz // n_clients)
+        if rows is not None:
+            batch = {k: v[rows] for k, v in batch.items()}
+            coeff = coeff[rows]
+        out = per_example_loss_fn(params, batch)
+        losses, aux = out if isinstance(out, tuple) else (out, None)
         total = torch.sum(coeff * losses)
+        sums = torch.stack([total, torch.sum(losses)]).detach()
+        if group is not None:
+            torch.distributed.all_reduce(sums, group=group)
+        weighted = sums[0]
         if aux_loss_weight and aux is not None:
             # Scale aux by the client weights so the energy mask also
             # de-biases router statistics.
-            total = total + aux_loss_weight * aux * torch.sum(weights)
-        # Unweighted mean loss for logging.
-        return total, torch.mean(losses)
+            aux_term = aux_loss_weight * aux * torch.sum(weights)
+            total = total + aux_term
+            weighted = weighted + aux_term.detach()
+        # The unweighted mean loss for logging.
+        return total, sums[1] / bsz, weighted
 
     def train_step(state: TrainState, batch, mask, scale):
+        mesh = current_mesh()
+        if flat and mesh is not None:
+            raise ValueError(FLAT_UNDER_MESH)
+        rows = group = None
+        if mesh is not None and rows_split():
+            rows = data_rows(batch["client_ids"].shape[0], mesh)
+            group = mesh.data_group
+            if group is None and mesh.group is not None:
+                raise ValueError(
+                    f"the rows split over the data axes of the mesh "
+                    f"{dict(mesh.shape)}, which has no process group along "
+                    f"them to sum the data shards' gradients over")
         weights = aggregation.client_weights(on(mask.device),
                                              Decision(mask=mask, scale=scale))
         leaves, treedef = tree_flatten(state.params)
         wrt = [leaf.detach().requires_grad_() for leaf in leaves]
         with torch.enable_grad():
-            total, mean_loss = loss_fn(tree_unflatten(treedef, wrt), batch,
-                                       weights)
+            total, mean_loss, weighted = loss_fn(
+                tree_unflatten(treedef, wrt), batch, weights, rows, group)
             grads = torch.autograd.grad(total, wrt, materialize_grads=True)
         with torch.no_grad():
+            if group is not None:
+                # The data shards' gradients summed, leaf by leaf in tree
+                # order on every rank of the group.
+                for g in grads:
+                    torch.distributed.all_reduce(g, group=group)
             grads = tree_unflatten(treedef, list(grads))
             if flat:
                 spec = aggregation.ravel_spec(state.params)
@@ -464,7 +516,7 @@ def build_energy_train_step(
                                                       state.params)
                 params = apply_updates(state.params, updates)
             metrics = {
-                "weighted_loss": total.detach(),
+                "weighted_loss": weighted.detach(),
                 "loss": mean_loss.detach(),
                 "active_clients": torch.sum(mask),
                 "weight_sum": torch.sum(weights),
@@ -473,6 +525,8 @@ def build_energy_train_step(
                           step=state.step + 1), metrics
 
     def init_state(params) -> TrainState:
+        if flat and current_mesh() is not None:
+            raise ValueError(FLAT_UNDER_MESH)
         if flat:
             spec = aggregation.ravel_spec(params)
             opt_state = optimizer.init(aggregation.ravel_pytree(params, spec))

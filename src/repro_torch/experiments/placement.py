@@ -35,8 +35,11 @@ rows, each cell's population split over the two ranks of its row.
 counterpart of ``jax.make_mesh``): the expert-parallel MoE layer
 (:mod:`repro_torch.models.moe`) splits its experts over the ``"model"``
 ranks and its tokens over the ``"data"`` ranks. Such a mesh has one
-process group a data row along ``"model"`` (the partial outputs' sum)
-and one over all its ranks (the load-balance loss's mean).
+process group a data row along ``"model"`` (the partial outputs' sum),
+one a column along the data axes, the ranks that share a ``"model"``
+index (a training step's gradient sum over its data shards,
+:func:`repro_torch.core.trainer.build_energy_train_step`), and one over
+all its ranks (the load-balance loss's mean).
 
 After a group has run, every rank holds every cell's result: the rank
 at client coordinate 0 of each row publishes its cells and all ranks
@@ -131,6 +134,11 @@ class Mesh:
     group : the process group of all the mesh's ranks when it has a
         ``"model"``, ``"data"`` or ``"pod"`` axis and more than one rank,
         else None.
+    columns : one process group a column along the data axes (the ranks
+        that share a ``"model"`` index) when the mesh has more than one
+        rank along them and no axes but ``"model"`` and the data axes,
+        else None for that column; a column that is the whole mesh (every
+        column of a mesh without a ``"model"`` axis) is ``group``.
     """
 
     axis_names: tuple
@@ -138,6 +146,7 @@ class Mesh:
     coords: tuple | None = None
     groups: tuple = ()
     group: object = None
+    columns: tuple = ()
 
     @property
     def shape(self) -> OrderedDict:
@@ -159,6 +168,17 @@ class Mesh:
             if self.ranks.ndim > 1 else 0
         return self.groups[row]
 
+    @property
+    def data_group(self):
+        """The process group of this rank's column along the data axes:
+        the ranks that share its ``"model"`` index, all of them on a mesh
+        without that axis (None for a one-rank column, or when the rank is
+        not in the mesh)."""
+        if not self.columns or self.coords is None:
+            return None
+        return self.columns[self.coords[-1]
+                            if MODEL_AXIS in self.axis_names else 0]
+
 
 _MESHES: dict = {}
 _MESH_LOCK = threading.Lock()
@@ -166,8 +186,8 @@ _MESH_LOCK = threading.Lock()
 
 def _make_mesh(grid, axis_names) -> Mesh:
     """The mesh over ``grid`` (an array of ranks), cached by layout. Its
-    row groups and its mesh group are made here, by every rank in the
-    same order."""
+    row groups, its mesh group and its column groups are made here, by
+    every rank in the same order."""
     grid = np.asarray(grid, dtype=np.int64)
     axis_names = tuple(axis_names)
     size, rank = _world()
@@ -193,7 +213,17 @@ def _make_mesh(grid, axis_names) -> Mesh:
                 if len(row) > 1 else None for row in rows)
         if ({MODEL_AXIS, *DATA_AXES} & set(axis_names)) and grid.size > 1:
             group = dist.new_group(ranks=[int(r) for r in grid.ravel()])
-        mesh = Mesh(axis_names, grid, coords, groups, group)
+        columns = ()
+        model = MODEL_AXIS in axis_names
+        if (set(axis_names) <= {MODEL_AXIS, *DATA_AXES}
+                and grid.size > (grid.shape[-1] if model else 1)):
+            cols = grid.reshape(-1, grid.shape[-1]).T if model \
+                else grid.reshape(1, -1)
+            columns = tuple(
+                group if len(col) == grid.size
+                else dist.new_group(ranks=[int(r) for r in col])
+                for col in cols)
+        mesh = Mesh(axis_names, grid, coords, groups, group, columns)
         _MESHES[key] = mesh
         return mesh
 
@@ -252,8 +282,8 @@ def make_mesh(shape, axis_names=("data", MODEL_AXIS), *, ranks=None) -> Mesh:
     """The counterpart of ``jax.make_mesh(shape, axis_names)``: the first
     ``prod(shape)`` ranks (default: of the world; ``ranks=`` pins a
     layout) in a grid of ``shape``, row-major. A ``"model"`` axis must be
-    the last; the mesh makes one process group a row along it and one
-    over all its ranks."""
+    the last; the mesh makes one process group a row along it, one over
+    all its ranks, and one a column along the data axes."""
     shape = tuple(int(n) for n in shape)
     pool = list(range(_world()[0])) if ranks is None \
         else [int(r) for r in np.ravel(ranks)]

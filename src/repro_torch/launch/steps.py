@@ -5,6 +5,14 @@ eq. 11/12) enters ``train_step`` through the (mask, scale) scheduler
 outputs — see :func:`repro_torch.core.trainer.build_energy_train_step`.
 PyTorch runs eagerly, so a builder returns a plain function where the
 JAX package's is jitted by its caller.
+
+Under a mesh of ranks (``use_mesh(mesh, batch=B)``,
+:mod:`repro_torch.models.common`) the train steps run as the JAX
+package's run under ``with mesh:``: each rank passes the global batch,
+with the parameters of ``place_params`` or ``init_lm(mesh=)`` (an MoE
+stack's experts split over ``"model"``), and its optimizer state is that
+of its own parameters (:func:`repro_torch.core.trainer.
+build_energy_train_step`).
 """
 
 from __future__ import annotations

@@ -46,6 +46,26 @@ def use_mesh(mesh, *, batch=None):
         _CONTEXT.value = previous
 
 
+def mesh_context():
+    """The innermost :func:`use_mesh` context of this thread, as
+    :func:`within_context` takes it back (None without one)."""
+    return getattr(_CONTEXT, "value", None)
+
+
+@contextlib.contextmanager
+def within_context(value):
+    """Run under a context :func:`mesh_context` captured, in any thread:
+    autograd runs a CUDA tensor's backward, and so remat's recomputation
+    of a layer, in a thread of its own, which must see the forward's
+    mesh."""
+    previous = getattr(_CONTEXT, "value", None)
+    _CONTEXT.value = value
+    try:
+        yield
+    finally:
+        _CONTEXT.value = previous
+
+
 def current_mesh():
     """The mesh of the innermost :func:`use_mesh`, or None."""
     value = getattr(_CONTEXT, "value", None)

@@ -29,8 +29,16 @@ tokens over all E experts, counts positions over its tokens, keeps only
 the assignments to its own experts (:func:`_local_moe`), and the partial
 outputs of a data row are summed by one ``all_reduce`` over the row's
 process group, in the activations' dtype; the load-balance loss is the
-mean of the ranks' own. Training through it (the ``all_reduce``'s
-backward) is not ported: it refuses a tensor that needs a gradient.
+mean of the ranks' own. It trains as the JAX package's ``shard_map``
+transposes (``check_rep=False``): the sum's backward is the identity
+(every rank of a row holds the same cotangent), the gradients of the
+rank's tokens and of the router, replicated over ``"model"``, are summed
+over the row (each rank's covers its own experts' share), and the aux's
+mean passes back ``1/(dp·tp)`` of its cotangent with no collective. With
+the data-axis sum of a training step
+(:func:`repro_torch.core.trainer.build_energy_train_step`) every leaf
+gets the gradient JAX's does under the same mesh. Every rank issues the
+same collectives in the same order, in a recomputation under remat too.
 
 Covers both MoE configs: phi3.5-moe (16 experts, top-2) and
 llama4-scout (16 experts, top-1, plus an always-on shared expert, added
@@ -101,6 +109,21 @@ def expert_slice(n_experts: int, mesh=None) -> slice | None:
     index, _ = block_index("model", mesh)
     count = n_experts // tp
     return slice(index * count, (index + 1) * count)
+
+
+def model_split(params) -> frozenset:
+    """The paths of the leaves of a model tree ``params`` of which a rank
+    holds its block over ``"model"`` (``place_params``, ``init_lm(mesh=)``):
+    each MoE layer's expert leaves that hold fewer experts than its
+    router scores. A global gradient norm sums their squares over the
+    rank's row (:func:`repro_torch.optim.chain_clip`'s ``split``)."""
+    leaves, _ = tree_flatten_with_path(params)
+    scored = {tuple(path[:-2]): leaf.shape[-1] for path, leaf in leaves
+              if tuple(path[-3:]) == ("moe", "router", "w")}
+    return frozenset(
+        tuple(path) for path, leaf in leaves
+        if len(path) > 1 and path[-2] == "moe" and path[-1] in EXPERT_LEAVES
+        and leaf.shape[-3] < scored.get(tuple(path[:-1]), 0))
 
 
 def init_moe(key, d_model, d_ff, n_experts, dtype, use_bias=False,
@@ -203,6 +226,62 @@ def _log(top_e, keep_all, counted, dropped):
         routing_log.append((top_e, keep_all.reshape(top_e.shape)))
 
 
+class _RowSum(torch.autograd.Function):
+    """The partial outputs of a data row summed in place by one
+    ``all_reduce`` over the row's group; the backward is the identity,
+    since every rank of the row holds the same cotangent."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        with record_function("moe_all_reduce"):
+            dist.all_reduce(y, group=group)
+        ctx.mark_dirty(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+class _RowReplicated(torch.autograd.Function):
+    """Tensors replicated over a data row (the rank's tokens, the router
+    weight) as they are; the backward sums their gradients over the
+    row's group, in argument order, since each rank's covers only its
+    own experts' share."""
+
+    @staticmethod
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out = []
+        for g in grads:
+            g = g.clone(memory_format=torch.contiguous_format)
+            with record_function("moe_all_reduce"):
+                dist.all_reduce(g, group=ctx.group)
+            out.append(g)
+        return (None, *out)
+
+
+class _MeshMean(torch.autograd.Function):
+    """The sum over ``group`` divided by ``size``; the backward passes
+    back ``back`` of the cotangent with no collective (the rest of the
+    mean's transpose is the sums the gradients take after it)."""
+
+    @staticmethod
+    def forward(ctx, x, group, size, back):
+        ctx.back = back
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x / size
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.back, None, None, None
+
+
 def _local_moe(router_w, w_gate, w_up, w_down, xt, *, n_experts, top_k,
                act, capacity, e_start, e_count):
     """A rank's MoE over its slice of experts (the JAX package's
@@ -252,10 +331,6 @@ def _apply_moe_ep(params, x, *, n_experts, top_k, act, capacity_factor,
             f"the expert-parallel MoE path over {dp} data shards takes this "
             f"rank's rows: give use_mesh(mesh, batch=...) the global batch "
             f"and each rank its data_rows")
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            "training under expert parallelism (the all_reduce's backward) "
-            "is not ported; the expert-parallel path serves only")
     b, s, d = x.shape
     capacity = int(max(1, (b * s * top_k * capacity_factor) // n_experts))
     e_count = n_experts // tp
@@ -265,18 +340,21 @@ def _apply_moe_ep(params, x, *, n_experts, top_k, act, capacity_factor,
             f"experts; the {tp}-way 'model' axis gives it {e_count} of "
             f"{n_experts} (place_params)")
     index, _ = block_index("model", mesh)
-    y, aux = _local_moe(params["router"]["w"], params["w_gate"],
-                        params["w_up"], params["w_down"], x.reshape(-1, d),
-                        n_experts=n_experts, top_k=top_k, act=act,
-                        capacity=capacity, e_start=index * e_count,
-                        e_count=e_count)
+    xt, router_w = x.reshape(-1, d), params["router"]["w"]
     if tp > 1:
-        with record_function("moe_all_reduce"):
-            dist.all_reduce(y, group=mesh.row_group)
+        xt, router_w = _RowReplicated.apply(mesh.row_group, xt, router_w)
+    y, aux = _local_moe(router_w, params["w_gate"], params["w_up"],
+                        params["w_down"], xt, n_experts=n_experts,
+                        top_k=top_k, act=act, capacity=capacity,
+                        e_start=index * e_count, e_count=e_count)
+    if tp > 1:
+        y = _RowSum.apply(y, mesh.row_group)
     if mesh.group is not None:
-        aux = aux.reshape(1)
-        dist.all_reduce(aux, group=mesh.group)
-        aux = aux[0] / mesh.size
+        # Each rank's aux counts its data shard's tokens once a rank of
+        # the row: 1/(dp·tp) of the cotangent, summed over the row by the
+        # router's and the tokens' backward, then over the data shards.
+        aux = _MeshMean.apply(aux.reshape(1), mesh.group, mesh.size,
+                              1.0 / mesh.size)[0]
     return y.reshape(b, s, d), aux
 
 
@@ -373,10 +451,12 @@ def apply_moe(params, x, *, n_experts, top_k, act="silu",
     frac, mean_p = _aux_terms(probs, top_e, n_experts)
     if split and mesh.group is not None:
         # Every rank's factors summed (the "model" ranks of a shard hold
-        # the same), then the mean over the shards.
-        terms = torch.stack([frac, mean_p])
-        dist.all_reduce(terms, group=mesh.group)
-        frac, mean_p = terms / mesh.size
+        # the same), then the mean over the shards. Every leaf is whole
+        # on the ranks of a row and not summed along it, so the backward
+        # passes back 1/dp of the cotangent, then summed over the shards.
+        frac, mean_p = _MeshMean.apply(torch.stack([frac, mean_p]),
+                                       mesh.group, mesh.size,
+                                       1.0 / data_shards(mesh))
     aux = n_experts * torch.sum(frac * mean_p)
     return y.reshape(b, s, d), aux
 

@@ -19,7 +19,9 @@ zero-filled, full-size gradient per layer; ``unbind``'s backward is one
 under ``torch.utils.checkpoint``, as the JAX package wraps it in
 ``jax.checkpoint``: policy ``"full"`` saves only the layer's inputs,
 ``"dots"`` also the outputs of products without batch dimensions (the
-dense layers; JAX's ``dots_with_no_batch_dims_saveable``). Recomputing
+dense layers; JAX's ``dots_with_no_batch_dims_saveable``); the
+recomputation runs under the forward's mesh context, in whatever thread
+autograd runs it. Recomputing
 runs the same ops on the same inputs, so the loss and gradients are
 those of a run without remat, bit for bit.
 
@@ -70,9 +72,11 @@ from repro_torch.models.common import (
     apply_norm,
     current_mesh,
     dense_init,
+    mesh_context,
     norm_init,
     normal_init,
     use_mesh,
+    within_context,
 )
 from repro_torch.sharding.rules import shard_leaf
 
@@ -230,8 +234,16 @@ def _remat(cfg, fn):
     def remat(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
+        # The recomputation runs in autograd's thread (a CUDA tensor's
+        # backward has one of its own), under the forward's mesh.
+        context = mesh_context()
+
+        def run(*args):
+            with within_context(context):
+                return fn(*args)
+
         # The blocks draw no random numbers: no RNG state to replay.
-        return checkpoint(fn, *args, use_reentrant=False,
+        return checkpoint(run, *args, use_reentrant=False,
                           preserve_rng_state=False, **kw)
 
     return remat

@@ -18,8 +18,9 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
-from repro_torch._tree import tree_leaves, tree_map
+from repro_torch._tree import tree_flatten_with_path, tree_leaves, tree_map
 
 
 class Optimizer(NamedTuple):
@@ -133,16 +134,39 @@ def adamw(lr, weight_decay: float = 0.01, **kw) -> Optimizer:
     return adam(lr, weight_decay=weight_decay, decoupled=True, **kw)
 
 
-def chain_clip(opt: Optimizer, max_norm: float) -> Optimizer:
-    """Global-norm gradient clipping wrapped around another optimizer."""
+def global_norm(grads, mesh=None, split=frozenset()) -> torch.Tensor:
+    """The f32 norm of all of ``grads``' leaves. On a rank of ``mesh`` it
+    is the global norm GSPMD gives the JAX package: the squares of the
+    leaves at ``split`` (their paths, of which this rank holds its block
+    over ``"model"``: :func:`repro_torch.models.moe.model_split`) are
+    summed over the rank's row, and those of a leaf whole on the row are
+    counted once."""
+    leaves, _ = tree_flatten_with_path(grads)
+    squares = [(tuple(path) in split,
+                torch.sum(torch.square(g.to(torch.float32))))
+               for path, g in leaves]
+    whole = sum(sq for cut, sq in squares if not cut)
+    row = None if mesh is None else mesh.row_group
+    if row is None or not split:
+        return torch.sqrt(whole + sum(sq for cut, sq in squares if cut))
+    own = torch.stack([sq for cut, sq in squares if cut]).sum()
+    dist.all_reduce(own, group=row)
+    return torch.sqrt(whole + own)
+
+
+def chain_clip(opt: Optimizer, max_norm: float, *, mesh=None,
+               split=frozenset()) -> Optimizer:
+    """Global-norm gradient clipping wrapped around another optimizer;
+    on a rank of ``mesh``, with the paths of the leaves cut over
+    ``"model"`` (``split``), the norm of the whole tree
+    (:func:`global_norm`)."""
+    split = frozenset(tuple(path) for path in split)
 
     def init(params):
         return opt.init(params)
 
     def update(grads, state, params=None):
-        leaves = tree_leaves(grads)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                               for g in leaves))
+        gnorm = global_norm(grads, mesh, split)
         scale = torch.clamp(max_norm / (gnorm + 1e-12), max=1.0)
         clipped = tree_map(lambda g: g * scale.to(g.dtype), grads)
         return opt.update(clipped, state, params)

@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``repro_torch``, no file of the
-port's ``examples_torch/`` and ``benchmarks_torch/``, and not the root
-``chip_smoke.py``, imports JAX or the JAX package ``repro``."""
+port's ``examples_torch/`` and ``benchmarks_torch/``, not the root
+``chip_smoke.py``, and no rank worker the port's tests start
+(``tests/torch_*_worker.py``), imports JAX or the JAX package
+``repro``."""
 
 import ast
 import os
@@ -13,7 +15,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(
     path for d in ("src/repro_torch", "examples_torch", "benchmarks_torch")
-    for path in (ROOT / d).rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in (ROOT / d).rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "tests").glob("torch_*_worker.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
