@@ -44,7 +44,22 @@ without printing its result line:
    each kernel. Then alg1/sgd runs once more through the plain torch
    matvec (``use_kernel=False``) as the reference the kernel run must
    agree with, and a last run under ``torch.profiler`` prints where a
-   step's device time goes and the device's busy share.
+   step's device time goes and the device's busy share. Then the legacy
+   per-leaf carry at the same width, K1 once a leaf (8 launches a step,
+   counted from 0 before each run and held at 8 x steps, K2 at 0): (a)
+   ``flat=False`` all f32 with sgd, with momentum, and with sgd and the
+   4 masked clients (none may take part), and (b) the CNN with its 4
+   biases (170 parameters) in bf16 under the default ``flat=None``, 40
+   steps each, finite; and, under deterministic cuDNN, REF_STEPS of (a)
+   with sgd against the flat route (K2) from the same seed:
+   participation bitwise, params within ``rtol=1e-4, atol=1e-5``, and
+   whether they are bitwise equal printed.
+   Legacy K1 timings: K1 at each leaf shape of (a) and (b) (40 rows; f32
+   leaves of 10 to 262,144 columns, bf16 leaves of 10, 32 and 64) against
+   its plain version, timed flushed and warm beside the plain version,
+   ``torch.mv`` and the bound, and a step's 8 launches summed beside the
+   flat route's one K1. The legacy carry's added seconds print on a line
+   of their own.
 5. Engine phase: the experiments engine (``repro_torch.experiments``)
    at the Fig-1 width, with the Fig-1 phase's data and batcher, through
    the kernels (``use_kernel=True``) under deterministic cuDNN. The
@@ -57,9 +72,15 @@ without printing its result line:
    seed): K2 launches counted, participation cropped to (steps, n), and
    the n = 10 cell rerun uncropped, where clients 10..39 must never take
    part and clients 0..9 must equal the engine's cell. One alg1 cell
-   with momentum: K1 once a step. The counts are set to 0 before each
-   study. Prints each study's cells, seeds, steps, wall seconds and
-   ms/step, beside the standalone run's ms/step.
+   with momentum: K1 once a step. A legacy study (the CNN with its
+   biases in bf16, the simulator's legacy per-leaf carry; alg1 at n = 30
+   and 40, one ragged group, seeds 1 and 2, 40 steps): K1 8 x steps of
+   every cell and seed, no K2; then checkpointed every 20 steps, cut
+   after its first checkpoint and resumed in this process, launching
+   only the missing steps, every cell bitwise the grouped run. The
+   counts are set to 0 before each study. Prints each study's cells,
+   seeds, steps, wall seconds and ms/step, beside the standalone run's
+   ms/step.
 6. Faults and resume phase, with the engine phase's data and CNN under
    deterministic cuDNN, seed 1, 40 steps a cell: alg1 cells clean, drop
    at rate 0, drop 0.3, drop_corrupt with every row NaN-poisoned and
@@ -369,7 +390,12 @@ without printing its result line:
    cast to bf16 for the one-dtype flat buffer), 1 step, counted, against
    K2's plain version. Each line carries the card's name and power
    limit.
-18. Prints the ``kernels`` JSON line (K1 and K2 also carry the engine,
+18. Prints the ``kernels`` JSON line (K1 also carries the legacy
+   carry's launches, ``legacy_launches`` (the Fig-1 phase's runs and the
+   engine's legacy study), its times at each leaf shape,
+   ``legacy_shapes``, and a step's 8 launches summed,
+   ``legacy_step_ms`` and ``legacy_step_bound_ms``; K1 and K2 also carry
+   the engine,
    faults, serve and dist phases' counts, ``engine_launches``,
    ``faults_launches``, ``serve_launches`` and ``dist_launches`` (a
    rank's, by combination), and their times at a shard's rows,
@@ -750,6 +776,73 @@ def kernel_phase(torch, ops, ref, peaks):
     return errs, timing
 
 
+#: The CNN's leaves, (dtype of form (b), columns), in tree order: its
+#: four biases are bf16 in form (b), every leaf f32 in form (a).
+CNN_LEAF_SHAPES = (("bf16", 32), ("f32", 2_400), ("bf16", 64),
+                   ("f32", 51_200), ("bf16", 64), ("f32", 262_144),
+                   ("bf16", 10), ("f32", 640))
+#: K1's launches a step on the legacy carry: one a leaf of the CNN.
+CNN_LEAVES = len(CNN_LEAF_SHAPES)
+
+
+def legacy_k1_phase(torch, ops, ref, peaks, flat_ms):
+    """K1 at each leaf shape of the legacy carry (40 rows; f32 leaves of
+    10 to 262,144 columns, bf16 leaves of 10, 32 and 64): against its
+    plain version, then timed flushed and warm beside the plain version,
+    ``torch.mv`` and the bound (bytes over the card's memory rate); and a
+    step's 8 launches summed for forms (a) and (b) beside the flat
+    route's one K1 (``flat_ms``, the kernel phase's)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    flush = flush_buffer(torch)
+    shapes, err = {}, 0.0
+    for kind, p in sorted({(k, p) for k, p in CNN_LEAF_SHAPES}
+                          | {("f32", p) for _, p in CNN_LEAF_SHAPES}):
+        dt = dtypes[kind]
+        g = torch.randn(N_CLIENTS, p, device=DEVICE, generator=gen).to(dt)
+        w = torch.rand(N_CLIENTS, device=DEVICE, generator=gen) * (
+            2.0 / N_CLIENTS)
+        got = ops.masked_scaled_aggregate(g, w)
+        want = ref.masked_scaled_aggregate_ref(g, w)
+        if dt == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+            err = max(err, (got - want).abs().max().item())
+        else:  # one bf16 rounding of the f32 sum
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=2 ** -8, atol=1e-6)
+        gt, wl = g.t(), w.to(dt)
+        t = [time_ms(torch, fn, flush) for fn in (
+            lambda: ops.masked_scaled_aggregate(g, w),
+            lambda: ref.masked_scaled_aggregate_ref(g, w),
+            lambda: torch.mv(gt, wl))]
+        esize = g.element_size()
+        nbytes = esize * N_CLIENTS * p + 4 * N_CLIENTS + esize * p
+        bound_b = nbytes / peaks[0] * 1e3
+        bound_f = 2 * N_CLIENTS * p / peaks[1] * 1e3
+        shapes[f"{kind} {p}"] = {
+            "ms": t[0][0], "warm_ms": t[0][1], "plain_ms": t[1][0],
+            "library_ms": t[2][0], "bound_ms": max(bound_b, bound_f),
+            "bound_by": "bytes" if bound_b >= bound_f else "operations"}
+        print(f"time k1 leaf {kind} (40, {p}) (L2 flushed | warm, ms): "
+              f"kernel {t[0][0]:.4f} | {t[0][1]:.4f}, plain {t[1][0]:.4f}, "
+              f"torch.mv {t[2][0]:.4f}, bound "
+              f"{max(bound_b, bound_f):.5f} ({nbytes / 1e3:.1f} KB)")
+    del flush
+    step = {"a": sum(shapes[f"f32 {p}"]["ms"] for _, p in CNN_LEAF_SHAPES),
+            "b": sum(shapes[f"{k} {p}"]["ms"] for k, p in CNN_LEAF_SHAPES),
+            "flat": flat_ms}
+    bound = {"a": sum(shapes[f"f32 {p}"]["bound_ms"]
+                      for _, p in CNN_LEAF_SHAPES),
+             "b": sum(shapes[f"{k} {p}"]["bound_ms"]
+                      for k, p in CNN_LEAF_SHAPES)}
+    print(f"time k1 legacy step (8 launches, one a leaf, flushed): (a) all "
+          f"f32 {step['a']:.4f} ms (bound {bound['a']:.4f}), (b) biases bf16 "
+          f"{step['b']:.4f} ms (bound {bound['b']:.4f}); the flat route's one "
+          f"K1 {flat_ms:.4f} ms")
+    return {"shapes": shapes, "step_ms": step, "step_bound_ms": bound,
+            "max_abs_err": err}
+
+
 def fig1_setup(torch, rt, seed=0):
     """The Fig-1 data on the card, its client batcher and the CNN's
     initial parameters, all from ``seed``: (batcher, params0, test_x,
@@ -772,8 +865,18 @@ def fig1_setup(torch, rt, seed=0):
     return batcher, params0, test_x, test_y
 
 
+def bf16_biases(torch, params):
+    """The CNN's params with its four biases (170 parameters) in bf16 and
+    the rest f32: a tree of mixed dtypes, which the simulator runs on the
+    legacy per-leaf carry under its default ``flat=None``."""
+    return {k: {kk: v.to(torch.bfloat16) if kk == "b" else v
+                for kk, v in d.items()} for k, d in params.items()}
+
+
 def fig1_phase(torch, rt):
-    """The Fig-1 loop at full width, through the kernels."""
+    """The Fig-1 loop at full width, through the kernels; then the legacy
+    per-leaf carry. Returns the launch counts, the data the later phases
+    take, and the legacy runs' counts and seconds."""
     seed = 0
     batcher, params0, test_x, test_y = fig1_setup(torch, rt, seed)
     arrivals = rt.core.make_arrivals("periodic", N_CLIENTS, STEPS)
@@ -782,15 +885,16 @@ def fig1_phase(torch, rt):
         return {"accuracy": rt.models.cnn_accuracy(p, test_x, test_y),
                 "loss": rt.models.cnn_loss(p, test_x, test_y)}
 
-    def run(method, opt, use_kernel=True, active=None, steps=STEPS):
+    def run(method, opt, use_kernel=True, active=None, steps=STEPS,
+            flat=None, start=params0):
         sim = rt.core.ClientSimulator(
             grads_fn=rt.models.client_grads_fn(batcher), p=batcher.p,
             optimizer=opt(), scheduler=rt.core.make_scheduler(method, N_CLIENTS),
-            energy=arrivals, use_kernel=use_kernel, device=DEVICE)
+            energy=arrivals, use_kernel=use_kernel, flat=flat, device=DEVICE)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, hist, evals = sim.run(
-            rt.random.PRNGKey(seed + 1, device=DEVICE), params0, steps,
+            rt.random.PRNGKey(seed + 1, device=DEVICE), start, steps,
             active_mask=active, eval_fn=evaluate,
             eval_every=EVAL_EVERY if steps % EVAL_EVERY == 0 else steps)
         torch.cuda.synchronize()
@@ -840,6 +944,37 @@ def fig1_phase(torch, rt):
               f"{ms:.2f} ms/step")
     launches = dict(counts)
 
+    # The legacy per-leaf carry at full width: (a) flat=False, all f32,
+    # and (b) the biases in bf16 under the default flat=None. K1 runs
+    # once a leaf (8 launches a step) and never fuses into K2.
+    legacy_t0 = time.perf_counter()
+    legacy = {}
+    for label, opt, act, flat, start in (
+            ("a alg1", sgd, None, False, params0),
+            ("a alg1+momentum", momentum, None, False, params0),
+            ("a alg1 masked", sgd, active, False, params0),
+            ("b alg1 bf16 biases", sgd, None, None,
+             bf16_biases(torch, params0))):
+        rt.kernels.aggregate.ops.reset_launch_counts()
+        _, hist, evals, ms = run("alg1", opt, active=act, flat=flat,
+                                 start=start)
+        legacy[label] = dict(counts)
+        want = {"masked_scaled_aggregate": CNN_LEAVES * STEPS,
+                "masked_scaled_aggregate_update": 0}
+        check(legacy[label] == want,
+              f"legacy {label}: launch counts {legacy[label]}, expected {want}")
+        if act is not None:
+            check(not bool(hist.participation[:, act == 0].any()),
+                  f"legacy {label}: a masked-out client took part")
+        acc = evals["accuracy"].tolist()
+        print(f"fig-1 legacy {label:<20} test acc {acc[0]:.3f} -> "
+              f"{acc[-1]:.3f}  mean participation "
+              f"{hist.participation.mean().item():.3f}  {ms:.2f} ms/step; "
+              f"K1 {legacy[label]['masked_scaled_aggregate']} launches "
+              f"({CNN_LEAVES} a step), K2 "
+              f"{legacy[label]['masked_scaled_aggregate_update']}")
+    legacy_seconds = time.perf_counter() - legacy_t0
+
     # Reference: a short alg1/sgd run through the kernels and through the
     # plain torch matvec, with deterministic cuDNN so the two differ only
     # in the order of the client sum (over 40 steps at this step size
@@ -849,6 +984,9 @@ def fig1_phase(torch, rt):
     flat_k2, _, _, _ = run("alg1", sgd, steps=REF_STEPS)
     flat_ref, hist_ref, _, _ = run("alg1", sgd, use_kernel=False,
                                    steps=REF_STEPS)
+    legacy_t0 = time.perf_counter()
+    flat_l, hist_l, _, _ = run("alg1", sgd, steps=REF_STEPS, flat=False)
+    legacy_seconds += time.perf_counter() - legacy_t0
     torch.backends.cudnn.deterministic = False
     check(torch.equal(flat_k, flat_k2),
           "two kernel runs from one seed differ: the step is not deterministic")
@@ -858,6 +996,17 @@ def fig1_phase(torch, rt):
     print(f"fig-1 reference: {REF_STEPS} alg1 steps through the kernels and "
           f"through the torch matvec agree, max abs param diff "
           f"{(flat_k - flat_ref).abs().max().item():.3g}")
+    # The legacy carry (K1 once a leaf, then sgd's step) against the flat
+    # route (K2) from the same seed: K2 is bitwise the unfused K1 path,
+    # and K1 sums each column the same way whatever its leaf.
+    check(torch.equal(hist_l.participation, hist_k.participation),
+          "participation differs between the legacy carry and the flat route")
+    torch.testing.assert_close(flat_l, flat_k, rtol=1e-4, atol=1e-5)
+    print(f"fig-1 legacy reference: {REF_STEPS} alg1 steps on the legacy "
+          f"carry (flat=False, K1 once a leaf) and on the flat route (K2) "
+          f"agree, max abs param diff "
+          f"{(flat_l - flat_k).abs().max().item():.3g}, bitwise "
+          f"{torch.equal(flat_l, flat_k)}")
 
     # Where a step's time goes: torch.profiler over PROFILE_STEPS alg1/sgd
     # steps (no evaluation), kernels by device time, and the device's
@@ -873,15 +1022,16 @@ def fig1_phase(torch, rt):
             "aggregate")
     data = {"batcher": batcher, "params0": params0,
             "accuracy": lambda p: rt.models.cnn_accuracy(p, test_x, test_y)}
-    return launches, data
+    return launches, data, {"launches": legacy, "seconds": legacy_seconds}
 
 
 def engine_phase(torch, rt, data):
     """The experiments engine at Fig-1 width, through the kernels: the
     ``fig1`` study against a standalone run, ``population_scaling`` with
-    its padding, and one momentum cell. Returns the launch counts of
-    each study's run."""
-    from repro_torch._tree import tree_map
+    its padding, one momentum cell, and a legacy study (the bf16-bias CNN)
+    grouped and resumed. Returns the launch counts of each study's run
+    and the legacy study's seconds."""
+    from repro_torch._tree import tree_leaves, tree_map
 
     rx = rt.experiments
     ops = rt.kernels.aggregate.ops
@@ -999,11 +1149,68 @@ def engine_phase(torch, rt, data):
         params0=params0, **dict(kw, optimizer=rt.optim.momentum(LR * 0.1, beta=0.9))),
         {"masked_scaled_aggregate": STEPS, "masked_scaled_aggregate_update": 0})
     finite("momentum", result)
-    torch.backends.cudnn.deterministic = False
     print(f"engine momentum cell: 1 cell x 1 seed x {STEPS} steps in "
           f"{wall:.2f} s, {wall / STEPS * 1e3:.2f} ms/step; "
           f"{counts['momentum']['masked_scaled_aggregate']} K1 launches")
-    return counts
+
+    # A legacy study: the CNN with its biases in bf16 (the simulator's
+    # legacy per-leaf carry), alg1 at n = 30 and 40 (one ragged group) x
+    # 2 seeds, grouped; then checkpointed, cut after its first checkpoint
+    # and resumed in this process, bitwise the grouped run.
+    legacy_t0 = time.perf_counter()
+    mixed0 = bf16_biases(torch, params0)
+    legacy = rx.Study("legacy_bf16_biases", num_steps=STEPS, axes={
+        "scheduler": "alg1", "arrivals": "periodic",
+        "n_clients": [30, N_CLIENTS], "taus_profile": [1, 5, 10, 20],
+        "seeds": list(ENGINE_SEEDS)})
+    n_runs = 2 * len(ENGINE_SEEDS)
+    check(sim.flat_spec(mixed0) is None, "the bf16-bias CNN is not legacy")
+    grouped, wall = timed("legacy", lambda: legacy.run(params0=mixed0, **kw),
+                          {"masked_scaled_aggregate":
+                           n_runs * CNN_LEAVES * STEPS,
+                           "masked_scaled_aggregate_update": 0})
+    finite("legacy", grouped)
+    manager = rt.checkpoint.CheckpointManager
+    real_save = manager.save
+
+    def save_then_cut(self, step, state):
+        real_save(self, step, state)
+        raise RuntimeError(f"cut after the checkpoint of step {step}")
+
+    with tempfile.TemporaryDirectory() as ckdir:
+        config = rx.ExecutionConfig(checkpoint_dir=ckdir,
+                                    checkpoint_every=STEPS // 2)
+        manager.save = save_then_cut
+        try:
+            legacy.run(params0=mixed0, config=config, **kw)
+            cut = None
+        except RuntimeError as e:
+            cut = str(e)
+        finally:
+            manager.save = real_save
+        check(cut is not None, "the checkpointed legacy study was not cut")
+        resumed, rwall = timed(
+            "legacy resumed", lambda: legacy.run(params0=mixed0,
+                                                 config=config, **kw),
+            {"masked_scaled_aggregate": n_runs * CNN_LEAVES * (STEPS // 2),
+             "masked_scaled_aggregate_update": 0})
+    for name, cell in grouped.items():
+        got, want = (tree_leaves(tuple(c)) for c in (resumed[name], cell))
+        check(len(got) == len(want) and all(
+            a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want)),
+            f"engine legacy: the resumed cell {name} differs from the grouped "
+            f"run")
+    legacy_seconds = time.perf_counter() - legacy_t0
+    torch.backends.cudnn.deterministic = False
+    print(f"engine legacy study (CNN, biases bf16, legacy per-leaf carry): "
+          f"n = 30, {N_CLIENTS} x {len(ENGINE_SEEDS)} seeds x {STEPS} steps "
+          f"grouped in {wall:.2f} s, {wall / (n_runs * STEPS) * 1e3:.2f} "
+          f"ms/step, {counts['legacy']['masked_scaled_aggregate']} K1 launches "
+          f"({CNN_LEAVES} a step), 0 K2; checkpointed every {STEPS // 2}, "
+          f"cut ({cut}) and resumed: {rwall:.2f} s, "
+          f"{counts['legacy resumed']['masked_scaled_aggregate']} K1 launches "
+          f"(the missing steps), every cell bitwise the grouped run")
+    return counts, legacy_seconds
 
 
 def fault_cells(rt, names=None):
@@ -5385,13 +5592,20 @@ def main():
           f"at once)")
 
     errs, timing = phase("kernel", kernel_phase, torch, ops, ref, peaks)
-    launches, fig1_data = phase("fig1", fig1_phase, torch, rt)
+    launches, fig1_data, legacy = phase("fig1", fig1_phase, torch, rt)
+    legacy_k1 = phase("legacy k1", legacy_k1_phase, torch, ops, ref, peaks,
+                      timing["k1"]["ms"])
     # The ep phase's ranks need K3 and run beside the engine, faults and
     # serve phases, which keep the card idle most of a step; the dist
     # phase times K1 and K2 after them, so it waits for the ranks.
     phase("k3 build wait", builds[1].result)
     ep = ep_start(torch)
-    engine_counts = phase("engine", engine_phase, torch, rt, fig1_data)
+    engine_counts, legacy_engine_s = phase("engine", engine_phase, torch,
+                                           rt, fig1_data)
+    print(f"legacy carry: {legacy['seconds'] + seconds['legacy k1'] + legacy_engine_s:.1f} s "
+          f"added (fig-1 runs {legacy['seconds']:.1f}, K1 leaf timings "
+          f"{seconds['legacy k1']:.1f}, engine study {legacy_engine_s:.1f}) "
+          f"[{card}]")
     fault_counts = phase("faults", faults_phase, torch, rt, fig1_data, card)
     serve_counts = phase("serve", serve_phase, torch, rt, fig1_data, card)
     del fig1_data
@@ -5432,6 +5646,7 @@ def main():
           f"s in all, {time.perf_counter() - T0:.1f} s since the script "
           f"started [{card}]")
 
+    errs["k1"] = max(errs["k1"], legacy_k1["max_abs_err"])
     names = {"k1": ("masked_scaled_aggregate", SOURCE,
                     "src/repro/kernels/aggregate/aggregate.py:77"),
              "k2": ("masked_scaled_aggregate_update", SOURCE,
@@ -5469,6 +5684,18 @@ def main():
             kernels[-1]["sharded_shapes"] = {
                 label: t for label, t in dist_shapes.items()
                 if label.startswith(key)}
+        if key == "k1":
+            # The legacy per-leaf carry: the Fig-1 phase's runs and the
+            # engine's legacy study, each counted from 0, and K1 at each
+            # leaf shape with a step's 8 launches summed.
+            kernels[-1]["legacy_launches"] = {
+                **{f"fig1 {label}": c[name]
+                   for label, c in legacy["launches"].items()},
+                **{f"engine {label}": engine_counts[label][name]
+                   for label in ("legacy", "legacy resumed")}}
+            kernels[-1]["legacy_shapes"] = legacy_k1["shapes"]
+            kernels[-1]["legacy_step_ms"] = legacy_k1["step_ms"]
+            kernels[-1]["legacy_step_bound_ms"] = legacy_k1["step_bound_ms"]
         if key == "k2":
             # The train phases' flat SGD route: one launch a step on a
             # one-row stack of a model's P parameters (stablelm's under

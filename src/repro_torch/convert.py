@@ -3,7 +3,8 @@
 :func:`params_from_jax` turns a parameter tree of the JAX package (its
 leaves numpy arrays, or anything ``np.asarray`` reads) into the port's
 tree of tensors, same structure, same layouts. :func:`carry_from_jax`
-does the same for a flat ``SimCarry``: params, optimizer state,
+does the same for a ``SimCarry``, flat or a legacy tree carry (bf16
+leaves bit for bit): params, optimizer state,
 scheduler state, energy state, key, step counter and fault state (``()``,
 a stale-update ring, or a tuple of them for a composite).
 :func:`train_state_from_jax` carries the SPMD LM train step's
@@ -71,7 +72,9 @@ def params_from_jax(tree, device=None):
 
 
 def carry_from_jax(carry, device=None) -> SimCarry:
-    """A flat JAX ``SimCarry`` → the port's :class:`SimCarry`."""
+    """A JAX ``SimCarry`` → the port's :class:`SimCarry`: a flat carry,
+    or a legacy tree carry with each leaf in its dtype (bf16 bit for
+    bit)."""
     return _convert(carry, resolve_device(device))
 
 

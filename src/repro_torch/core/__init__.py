@@ -40,6 +40,9 @@ from repro_torch.core.scheduling import (
 from repro_torch.core.aggregation import (
     RavelSpec,
     aggregate_client_grads,
+    aggregate_client_grads_flat,
+    aggregate_client_grads_kernel,
+    aggregate_client_grads_kernel_per_leaf,
     client_weights,
     compose_masks,
     fused_flat_sgd_update,
@@ -49,6 +52,7 @@ from repro_torch.core.aggregation import (
     ravel_spec,
     ravel_stacked,
     reduce_flat,
+    server_update,
     unravel_pytree,
 )
 from repro_torch.core.convergence import (
@@ -88,10 +92,12 @@ __all__ = [
     "Decision", "EHAppointmentScheduler", "WaitForAllScheduler",
     "make_scheduler", "mask_arrivals", "pad_scheduler", "register_scheduler",
     "scheduler_names",
-    "RavelSpec", "aggregate_client_grads", "client_weights", "compose_masks",
-    "per_example_coefficients",
+    "RavelSpec", "aggregate_client_grads", "aggregate_client_grads_flat",
+    "aggregate_client_grads_kernel", "aggregate_client_grads_kernel_per_leaf",
+    "client_weights", "compose_masks", "per_example_coefficients",
     "fused_flat_sgd_update", "make_flat_grads_fn", "ravel_pytree",
-    "ravel_spec", "ravel_stacked", "reduce_flat", "unravel_pytree",
+    "ravel_spec", "ravel_stacked", "reduce_flat", "server_update",
+    "unravel_pytree",
     "QuadraticProblem", "biased_fixed_point", "error_floor", "make_quadratic",
     "max_step_size", "theorem1_bound", "variance_constant",
     "CompositeFault", "CorruptGradients", "DropUpdates", "OfflineWindows",

@@ -10,7 +10,13 @@ The whole gradient tree is raveled into one ``(N, P)`` buffer (a cached
 :class:`RavelSpec` records where each leaf lives), reduced by one kernel
 launch or one matvec per step, and unraveled by offset slicing.
 :func:`aggregate_client_grads` is the per-leaf reference the flat path
-is held against.
+is held against. The legacy per-leaf carry
+(:class:`~repro_torch.core.trainer.ClientSimulator` with ``flat=False``,
+or a tree of mixed dtypes) aggregates through
+:func:`aggregate_client_grads_flat` (one reduction, or per leaf when the
+gradient tree mixes dtypes) and
+:func:`aggregate_client_grads_kernel_per_leaf` (K1 once a leaf, each in
+its leaf's dtype).
 
 The flat layout is ``jax.tree_util``'s: leaves in sorted-key order
 (:mod:`repro_torch._tree`), each row-major. A flat buffer of the port is
@@ -395,6 +401,57 @@ def fused_flat_sgd_update(g: torch.Tensor, weights: torch.Tensor,
     return new_params, new_state, shard_all_reduce(torch.sum(weights), shard)
 
 
+def aggregate_client_grads_flat(stacked_grads, weights: torch.Tensor, *,
+                                use_kernel: bool = False, mask=None):
+    """Single-pass aggregation: ravel → one kernel launch or matvec →
+    unravel.
+
+    Same contract as :func:`aggregate_client_grads` (f32 accumulation);
+    one reduction whatever the number of leaves. A mixed-dtype tree
+    falls back to the per-leaf route (K1 once a leaf under
+    ``use_kernel``).
+    """
+    try:
+        spec = ravel_spec(stacked_grads, lead_axes=1)
+    except ValueError:
+        if use_kernel:
+            return aggregate_client_grads_kernel_per_leaf(
+                stacked_grads, weights, mask)
+        return aggregate_client_grads(stacked_grads, weights, mask)
+    g = ravel_stacked(stacked_grads, spec)
+    return unravel_pytree(
+        reduce_flat(g, weights, use_kernel=use_kernel, mask=mask), spec)
+
+
+def aggregate_client_grads_kernel(stacked_grads, weights: torch.Tensor,
+                                  mask=None):
+    """Kernel-route aggregation: the tree raveled once into ``(N, P)``
+    and reduced by one launch of K1."""
+    return aggregate_client_grads_flat(stacked_grads, weights,
+                                       use_kernel=True, mask=mask)
+
+
+def aggregate_client_grads_kernel_per_leaf(stacked_grads,
+                                           weights: torch.Tensor, mask=None):
+    """One launch of K1 a leaf, each ``(N, ...)`` leaf reduced as an
+    ``(N, size)`` buffer into its own dtype: the mixed-dtype fallback
+    and the ``ClientSimulator(flat=False)`` route.
+
+    The JAX package rounds ω to the leaf's dtype before its kernel,
+    which widens it to f32 again; K1 takes f32 weights, so the rounding
+    is made here and a bf16 leaf sees the same ω bits as in JAX.
+    """
+
+    def _one(leaf):
+        n = leaf.shape[0]
+        w = weights.to(leaf.dtype).to(torch.float32)
+        out = agg_ops.masked_scaled_aggregate(
+            leaf.reshape(n, -1).contiguous(), w, mask=mask)
+        return out.reshape(leaf.shape[1:])
+
+    return tree_map(_one, stacked_grads)
+
+
 def per_example_coefficients(client_ids: torch.Tensor, weights: torch.Tensor,
                              examples_per_client) -> torch.Tensor:
     """Per-example loss coefficients realizing the paper's update in SPMD.
@@ -419,3 +476,10 @@ def per_example_coefficients(client_ids: torch.Tensor, weights: torch.Tensor,
     else:
         per_client = weights / torch.clamp(b, min=1.0)
     return per_client[client_ids.long()]
+
+
+def server_update(params, aggregated_grads, lr):
+    """Plain SGD server update, w ← w − η · aggregate (paper eq. 11),
+    leaf by leaf, each aggregate cast to its leaf's dtype."""
+    return tree_map(lambda w, g: w - lr * g.to(w.dtype), params,
+                    aggregated_grads)

@@ -1,9 +1,10 @@
 """ClientSimulator — energy process, scheduler and SGD, in torch.
 
-Port of the flat-carry path of ``repro.core.trainer.ClientSimulator``:
-N clients, per-client stochastic gradients, and the server aggregation
-with ω_i = p_i·mask_i·scale_i (paper eq. 11/12). Params and optimizer
-state live in the carry as flat ``(P,)`` buffers (DESIGN.md §5): each
+Port of ``repro.core.trainer.ClientSimulator``: N clients, per-client
+stochastic gradients, and the server aggregation with
+ω_i = p_i·mask_i·scale_i (paper eq. 11/12). On the flat carry (the
+default for a uniform-dtype tree) params and optimizer state live in
+the carry as flat ``(P,)`` buffers (DESIGN.md §5): each
 step emits one ``(N, P)`` gradient buffer and reduces it with one kernel
 launch or one matvec. With ``use_kernel`` and a plain ``sgd``
 optimizer the reduction and the parameter step are one launch of the
@@ -11,10 +12,10 @@ fused kernel K2; with any other optimizer the reduction is kernel K1.
 
 Where the JAX package runs the loop as one ``lax.scan``, the port runs a
 Python loop on the device; nothing in a step waits for the device
-except what the caller reads. The JAX package donates the carry to its
-scan; the port allocates each step's new parameter buffer instead (the
-buffer is 4·P bytes, small beside the (N, P) gradients), and leaves the
-input carry valid.
+except what the caller reads. The JAX package donates a flat carry to
+its scan; the port allocates each step's new parameter buffer instead
+(the buffer is 4·P bytes, small beside the (N, P) gradients), and leaves
+the input carry valid.
 
 Fault injection (``faults=``, :mod:`repro_torch.core.faults`) acts on
 the flat ``(N, P)`` gradient buffer before the reduction: the fault's
@@ -46,9 +47,15 @@ under ``fused``). Params and optimizer state stay replicated, and the
 participation history is gathered back to full width at the end of a
 run. Faults are refused under a clients axis, as in the JAX package.
 
-Not ported yet: the legacy per-leaf carry (``flat=False``, and
-mixed-dtype parameters; ROADMAP Queue 1 step 5), refused with
-``NotImplementedError``.
+**The legacy per-leaf carry** (``flat=False``, and by default any
+parameter tree of mixed dtypes): params and optimizer state stay trees
+in their leaves' dtypes, and each step aggregates leaf by leaf, one
+launch of K1 a leaf under ``use_kernel`` (never fused into K2), or, for
+``flat=None`` with a uniform-dtype gradient tree, one reduction over its
+ravel. As in the JAX package it is the reference the flat route is held
+against, :meth:`ClientSimulator.step` always runs it, and ``init`` and
+``run_carry`` take it unless given a spec. Faults and client sharding
+need the flat carry and refuse it with the JAX package's errors.
 """
 
 from __future__ import annotations
@@ -77,6 +84,12 @@ FLAT_UNDER_MESH = (
     "sharded training, whose per-leaf optimizer state follows each "
     "leaf's placement (the JAX package's build_energy_train_step says "
     "the same of its PartitionSpecs)")
+SHARDING_NEEDS_FLAT = (
+    "client-axis sharding (DESIGN.md §8) requires flat-carry execution: "
+    "uniform-dtype params and flat != False")
+FAULTS_NEED_FLAT = (
+    "fault injection (repro_torch.core.faults) requires flat-carry "
+    "execution: uniform-dtype params and flat != False (DESIGN.md §10)")
 FUSED_NEEDS_SGD = (
     "reduction 'fused' bundles the SGD parameter update into the reduction "
     "kernel and needs a plain sgd() optimizer (kind='sgd'); use 'psum' for "
@@ -117,7 +130,12 @@ class ClientSimulator:
     loss_fn : optional (params) -> scalar global loss, logged per step.
     use_kernel : aggregate through the CUDA kernels K1/K2 (their plain
         versions for CPU tensors); default a torch matvec.
-    flat : only the flat carry is ported; ``False`` raises.
+    flat : run in flat parameter space (DESIGN.md §5): params and
+        optimizer state as single ``(P,)`` buffers in the carry, one
+        reduction a step. ``None`` (default) takes it whenever every
+        param leaf shares one dtype; ``False`` keeps the legacy per-leaf
+        carry *and* per-leaf aggregation in each leaf's dtype; ``True``
+        raises on mixed-dtype params.
     device : where the loop runs; None means the CUDA card and raises
         when there is none.
     """
@@ -126,10 +144,6 @@ class ClientSimulator:
                  scheduler=None, energy=None, faults=None,
                  loss_fn=None, use_kernel: bool = False,
                  flat: bool | None = None, device=None):
-        if flat is False:
-            raise NotImplementedError(
-                "the legacy per-leaf carry (flat=False) is not ported; the "
-                "port runs the flat carry only (ROADMAP Queue 1 step 5)")
         self.device = resolve_device(device)
         self.grads_fn = grads_fn
         self.scheduler = scheduler
@@ -139,6 +153,7 @@ class ClientSimulator:
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.use_kernel = use_kernel
+        self.flat = flat
         self._gfn_cache: dict = {}
 
     def _f32(self, x):
@@ -164,14 +179,19 @@ class ClientSimulator:
         return scheduler, energy, faults
 
     def flat_spec(self, params):
-        """The :class:`~repro_torch.core.aggregation.RavelSpec` the
-        simulator runs ``params`` under."""
+        """The :class:`~repro_torch.core.aggregation.RavelSpec` that
+        :meth:`run` executes ``params`` under, or None for the legacy
+        per-leaf carry (``flat=False``, or mixed leaf dtypes under
+        ``flat=None``). Checkpoint drivers pass it to :meth:`init` and
+        :meth:`run_carry`, so a saved carry resumes in its layout."""
+        if self.flat is False:
+            return None
         try:
             return aggregation.ravel_spec(params)
-        except ValueError as e:
-            raise NotImplementedError(
-                "mixed-dtype parameters need the legacy per-leaf carry, "
-                f"which is not ported (ROADMAP Queue 1 step 5; {e})") from None
+        except ValueError:
+            if self.flat:
+                raise
+            return None
 
     def _flat_grads(self, spec):
         fn = self._gfn_cache.get(spec)
@@ -183,13 +203,19 @@ class ClientSimulator:
 
     def init(self, key, params, *, scheduler=None, energy=None,
              faults=None, spec=None) -> SimCarry:
-        """Build the carry: params and optimizer state flat under ``spec``
-        (default: :meth:`flat_spec` of ``params``), and the fault
-        component's state."""
+        """Build the carry: with ``spec`` (a :meth:`flat_spec`) params
+        and optimizer state are flat ``(P,)`` buffers, without it the
+        legacy tree carry (params and optimizer state as trees), and the
+        fault component's state."""
         scheduler, energy, faults = self._components(scheduler, energy,
                                                      faults)
-        spec = self.flat_spec(params) if spec is None else spec
-        params = aggregation.ravel_pytree(params, spec).to(self.device)
+        if faults is not None and spec is None:
+            raise ValueError(FAULTS_NEED_FLAT)
+        if spec is None:
+            params = tree_map(lambda x: torch.as_tensor(x).to(self.device),
+                              params)
+        else:
+            params = aggregation.ravel_pytree(params, spec).to(self.device)
         key = key.to(self.device)
         k_sched, k_energy, k_run = trandom.split(key, 3).unbind(0)
         fault_state = ()
@@ -206,9 +232,11 @@ class ClientSimulator:
             fault_state=fault_state,
         )
 
-    def step(self, carry: SimCarry, scheduler=None, energy=None, *, spec,
-             p=None, active_mask=None, faults=None) -> tuple[SimCarry, dict]:
-        """One server round on a flat carry made under ``spec``."""
+    def step(self, carry: SimCarry, scheduler=None, energy=None, *,
+             p=None, active_mask=None, faults=None, spec=None
+             ) -> tuple[SimCarry, dict]:
+        """One server round: on a tree carry (the JAX package's public
+        single-step API), or on a flat carry made under ``spec``."""
         scheduler, energy, faults = self._components(scheduler, energy,
                                                      faults)
         return self._step(carry, scheduler, energy, spec, self._f32(p),
@@ -217,11 +245,17 @@ class ClientSimulator:
     @torch.no_grad()
     def _step(self, carry: SimCarry, scheduler, energy, spec, p=None,
               active_mask=None, faults=None) -> tuple[SimCarry, dict]:
-        """The step body. ``p`` overrides the constructor weights and
-        ``active_mask`` is the (N,) 0/1 existing-client mask (DESIGN.md
-        §7); both are f32 tensors on the simulator's device or None.
-        ``faults`` is a placed fault component or None."""
+        """The step body; ``spec`` non-None means ``carry.params`` is the
+        raveled ``(P,)`` vector, None the legacy tree carry. ``p``
+        overrides the constructor weights and ``active_mask`` is the
+        (N,) 0/1 existing-client mask (DESIGN.md §7); both are f32
+        tensors on the simulator's device or None. ``faults`` is a
+        placed fault component or None."""
         shard = client_shard()
+        if shard is not None and spec is None:
+            raise ValueError(SHARDING_NEEDS_FLAT)
+        if faults is not None and spec is None:
+            raise ValueError(FAULTS_NEED_FLAT)
         if shard is not None and faults is not None:
             raise ValueError(FAULTS_UNDER_CLIENTS)
         p = self.p if p is None else p
@@ -234,56 +268,80 @@ class ClientSimulator:
             # Zero weight for rows that do not exist even if a custom
             # scheduler leaked mass to them (×1 on active rows is exact).
             weights = weights * active_mask
-        params_tree = aggregation.unravel_pytree(carry.params, spec)
-        g = self._flat_grads(spec)(params_tree, k_grad, carry.t)
         fault_state, row_mask = carry.fault_state, active_mask
-        if faults is not None:
-            # The delivery mask joins the active-row select, so a dropped
-            # row is an exact zero through K1/K2 even when its payload is
-            # NaN, and zero weights keep weight_sum the delivered mass.
-            k_fault = trandom.fold_in(k_grad, FAULT_SALT)
-            fault_state, g, keep = faults.apply(carry.fault_state, carry.t,
-                                                k_fault, g)
-            if keep is not None:
-                weights = weights * keep
-                row_mask = aggregation.compose_masks(active_mask, keep)
         fusable = getattr(self.optimizer, "kind", "") == "sgd"
         agg = params = wsum = None
-        if shard is not None:
-            mode, wire = aggregation.parse_reduction(shard.reduction)
-            if mode == "fused":
-                if not fusable:
-                    raise ValueError(FUSED_NEEDS_SGD)
-                params, opt_state, wsum = aggregation.fused_flat_sgd_update(
-                    g, weights, carry.params, carry.opt_state,
-                    self.optimizer, mask=row_mask,
-                    use_kernel=self.use_kernel, shard=shard, wire_dtype=wire)
+        if spec is None:
+            stacked = self.grads_fn(carry.params, k_grad, carry.t)
+            if self.flat is False:
+                # The legacy semantics: per-leaf reductions (K1 once a
+                # leaf under use_kernel), leaf dtypes untouched; the
+                # reference the flat route is held against.
+                agg = (aggregation.aggregate_client_grads_kernel_per_leaf(
+                           stacked, weights, active_mask) if self.use_kernel
+                       else aggregation.aggregate_client_grads(
+                           stacked, weights, active_mask))
             else:
-                agg, wsum = aggregation.reduce_flat_client_sharded(
-                    g, weights, shard=shard, use_kernel=self.use_kernel,
-                    mask=row_mask)
-        elif self.use_kernel and fusable:
-            # One launch of K2: the same f32 op sequence as
-            # reduce → −η·agg → add.
-            params, opt_state, _ = aggregation.fused_flat_sgd_update(
-                g, weights, carry.params, carry.opt_state, self.optimizer,
-                mask=row_mask, use_kernel=True)
+                agg = aggregation.aggregate_client_grads_flat(
+                    stacked, weights, use_kernel=self.use_kernel,
+                    mask=active_mask)
         else:
-            agg = aggregation.reduce_flat(g, weights,
-                                          use_kernel=self.use_kernel,
-                                          mask=row_mask)
+            params_tree = aggregation.unravel_pytree(carry.params, spec)
+            g = self._flat_grads(spec)(params_tree, k_grad, carry.t)
+            if faults is not None:
+                # The delivery mask joins the active-row select, so a
+                # dropped row is an exact zero through K1/K2 even when its
+                # payload is NaN, and zero weights keep weight_sum the
+                # delivered mass.
+                k_fault = trandom.fold_in(k_grad, FAULT_SALT)
+                fault_state, g, keep = faults.apply(carry.fault_state,
+                                                    carry.t, k_fault, g)
+                if keep is not None:
+                    weights = weights * keep
+                    row_mask = aggregation.compose_masks(active_mask, keep)
+            if shard is not None:
+                mode, wire = aggregation.parse_reduction(shard.reduction)
+                if mode == "fused":
+                    if not fusable:
+                        raise ValueError(FUSED_NEEDS_SGD)
+                    params, opt_state, wsum = (
+                        aggregation.fused_flat_sgd_update(
+                            g, weights, carry.params, carry.opt_state,
+                            self.optimizer, mask=row_mask,
+                            use_kernel=self.use_kernel, shard=shard,
+                            wire_dtype=wire))
+                else:
+                    agg, wsum = aggregation.reduce_flat_client_sharded(
+                        g, weights, shard=shard, use_kernel=self.use_kernel,
+                        mask=row_mask)
+            elif self.use_kernel and fusable:
+                # One launch of K2: the same f32 op sequence as
+                # reduce → −η·agg → add.
+                params, opt_state, _ = aggregation.fused_flat_sgd_update(
+                    g, weights, carry.params, carry.opt_state,
+                    self.optimizer, mask=row_mask, use_kernel=True)
+            else:
+                agg = aggregation.reduce_flat(g, weights,
+                                              use_kernel=self.use_kernel,
+                                              mask=row_mask)
         if params is None:
             updates, opt_state = self.optimizer.update(
                 agg, carry.opt_state, carry.params)
             params = apply_updates(carry.params, updates)
-        loss = (self.loss_fn(aggregation.unravel_pytree(params, spec))
-                if self.loss_fn is not None
+        if spec is None:
+            loss_params = params
+            finite = torch.stack([torch.all(torch.isfinite(leaf))
+                                  for leaf in tree_leaves(params)]).all()
+        else:
+            loss_params = aggregation.unravel_pytree(params, spec)
+            finite = torch.all(torch.isfinite(params))
+        loss = (self.loss_fn(loss_params) if self.loss_fn is not None
                 else torch.zeros((), dtype=torch.float32, device=self.device))
         out = {
             "loss": loss,
             "participation": dec.mask,
             "weight_sum": torch.sum(weights) if wsum is None else wsum,
-            "finite": torch.all(torch.isfinite(params)),
+            "finite": finite,
         }
         new_carry = SimCarry(params=params, opt_state=opt_state,
                              sched_state=sched_state, energy_state=energy_state,
@@ -319,7 +377,8 @@ class ClientSimulator:
     def run(self, key, params, num_steps: int, *, scheduler=None, energy=None,
             faults=None, p=None, active_mask=None, eval_fn=None,
             eval_every: int = 0):
-        """Run ``num_steps`` rounds from ``params``.
+        """Run ``num_steps`` rounds from ``params``, under the carry that
+        :meth:`flat_spec` picks for them.
 
         Without ``eval_fn``: returns ``(final_params, SimHistory)``. With
         ``eval_fn`` (params -> metric tree): evaluates after every
@@ -334,11 +393,15 @@ class ClientSimulator:
         carry = self.init(key, params, scheduler=scheduler, energy=energy,
                           faults=faults, spec=spec)
         p, active_mask = self._f32(p), self._f32(active_mask)
+
+        def tree(c):
+            return (c.params if spec is None
+                    else aggregation.unravel_pytree(c.params, spec))
+
         if eval_fn is None:
             carry, outs = self._steps(carry, num_steps, scheduler, energy,
                                       spec, p, active_mask, faults)
-            return (aggregation.unravel_pytree(carry.params, spec),
-                    self._history(outs))
+            return tree(carry), self._history(outs)
         if eval_every <= 0:
             eval_every = num_steps
         if num_steps % eval_every != 0:
@@ -350,19 +413,18 @@ class ClientSimulator:
                                        spec, p, active_mask, faults)
             outs += chunk
             with torch.no_grad():
-                evals.append(eval_fn(aggregation.unravel_pytree(carry.params,
-                                                                spec)))
+                evals.append(eval_fn(tree(carry)))
         evals = tree_map(lambda *xs: torch.stack(xs), *evals)
-        return (aggregation.unravel_pytree(carry.params, spec),
-                self._history(outs), evals)
+        return tree(carry), self._history(outs), evals
 
     def run_carry(self, carry: SimCarry, num_steps: int, *, scheduler=None,
                   energy=None, faults=None, p=None, active_mask=None,
-                  spec) -> tuple[SimCarry, SimHistory]:
-        """Advance a flat carry (from :meth:`init`, or converted from the
-        JAX package by :func:`repro_torch.convert.carry_from_jax`)
+                  spec=None) -> tuple[SimCarry, SimHistory]:
+        """Advance a carry (from :meth:`init`, or converted from the JAX
+        package by :func:`repro_torch.convert.carry_from_jax`)
         ``num_steps`` rounds. ``spec`` is the :meth:`flat_spec` of the
-        original params. The whole step stream is a function of the
+        original params for a flat carry, None (the default) for the
+        legacy tree carry. The whole step stream is a function of the
         carry, so a resumed run equals the uninterrupted one."""
         scheduler, energy, faults = self._components(scheduler, energy,
                                                      faults)

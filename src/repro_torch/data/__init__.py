@@ -11,10 +11,12 @@ from repro_torch.data.synthetic import (
     SyntheticImageDataset,
     SyntheticLMDataset,
     make_confusable_image_classification,
+    make_image_classification,
     make_lm_tokens,
 )
 
 __all__ = ["ClientBatcher", "GlobalBatcher", "dirichlet_partition",
            "group_label_skew_partition", "iid_partition",
            "SyntheticImageDataset", "make_confusable_image_classification",
+           "make_image_classification",
            "SyntheticLMDataset", "make_lm_tokens"]

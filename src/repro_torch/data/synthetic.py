@@ -1,6 +1,7 @@
 """Synthetic data (numpy; a copy of the parts of ``repro.data.synthetic``
 the port needs, so it imports nothing of the JAX package): the Fig-1
-image task and the Zipf-Markov token stream the LM prompts come from.
+image task, the plain prototype task beside it, and the Zipf-Markov
+token stream the LM prompts come from.
 The same seed gives the same arrays as the JAX package.
 
 CIFAR-10 is replaced by a class-structured synthetic task with the same
@@ -21,6 +22,32 @@ class SyntheticImageDataset(NamedTuple):
     images: np.ndarray  # (D, H, W, C) float32
     labels: np.ndarray  # (D,) int32
     n_classes: int
+
+
+def make_image_classification(
+    seed: int,
+    n_examples: int,
+    *,
+    n_classes: int = 10,
+    image_shape: tuple[int, int, int] = (32, 32, 3),
+    noise: float = 0.35,
+    prototype_smoothness: int = 4,
+) -> SyntheticImageDataset:
+    """Gaussian-prototype image classification (CIFAR-shaped): each
+    class a smooth prototype (a low-resolution random field upsampled),
+    samples the prototype of their label plus Gaussian noise."""
+    rng = np.random.default_rng(seed)
+    h, w, c = image_shape
+    lo = max(h // prototype_smoothness, 1)
+    protos_lo = rng.normal(size=(n_classes, lo, lo, c)).astype(np.float32)
+    reps = (h + lo - 1) // lo
+    protos = np.repeat(np.repeat(protos_lo, reps, axis=1), reps,
+                       axis=2)[:, :h, :w, :]
+    labels = rng.integers(0, n_classes, size=n_examples).astype(np.int32)
+    images = protos[labels] + noise * rng.normal(
+        size=(n_examples, h, w, c)).astype(np.float32)
+    return SyntheticImageDataset(images=images.astype(np.float32),
+                                 labels=labels, n_classes=n_classes)
 
 
 def make_confusable_image_classification(

@@ -37,7 +37,10 @@ execution** (:func:`execute_cells_resumable`) advances each group in
 chunks through :meth:`ClientSimulator.run_carry` and checkpoints the
 group's carries and history after every chunk, stacked into ``(S, R,
 …)`` arrays, the layout the JAX package writes; a run killed at any
-point resumes from its directory bit for bit.
+point resumes from its directory bit for bit. A legacy simulator (its
+:meth:`~ClientSimulator.flat_spec` None: ``flat=False``, or a
+``params0`` of mixed dtypes) takes every route; its carries are trees,
+checkpointed in their leaves' dtypes.
 
 **The runner protocol** (DESIGN.md §11) is the JAX package's: a
 caller-owned ``executable_cache`` (:class:`repro_torch.serve.
@@ -926,8 +929,11 @@ def _advance_resumable_group(
         history = _pad_halted_history(history, num_steps)
     cells = []
     for j in range(n_scen):
+        # A legacy carry (spec None) holds the params tree itself.
         params = tree_map(lambda *xs: torch.stack(xs), *[
-            aggregation.unravel_pytree(c.params, spec) for c in carries[j]])
+            c.params if spec is None
+            else aggregation.unravel_pytree(c.params, spec)
+            for c in carries[j]])
         cells.append(CellResult(
             params=params, history=SimHistory(*(
                 torch.from_numpy(np.ascontiguousarray(x[j])).to(sim.device)

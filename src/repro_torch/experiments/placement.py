@@ -70,7 +70,8 @@ from repro_torch._tree import tree_map
 from repro_torch.core.aggregation import parse_reduction
 from repro_torch.core.energy import client_sharding
 from repro_torch.core.scheduling import shard_scheduler
-from repro_torch.core.trainer import FAULTS_UNDER_CLIENTS, FUSED_NEEDS_SGD
+from repro_torch.core.trainer import (FAULTS_NEED_FLAT, FAULTS_UNDER_CLIENTS,
+                                      FUSED_NEEDS_SGD, SHARDING_NEEDS_FLAT)
 from repro_torch.sharding.rules import DATA_AXES, MODEL_AXIS
 
 #: Default mesh-axis name for the flattened (scenario × seed) cell axis.
@@ -526,18 +527,27 @@ def _run_cells(sim, mesh, reduction, cells, params0, num_steps, eval_fn,
     return out, index == 0
 
 
-def _check_sharded(sim, mesh, reduction, faults) -> tuple:
+def _check_sharded(sim, mesh, reduction, faults, params0) -> tuple:
     """Every precondition of a sharded run, checked before any rank runs
     a step, so that all ranks raise the same error (a rank that raised
-    mid-run would leave the others waiting in a collective)."""
+    mid-run would leave the others waiting in a collective). Faults and
+    a clients axis need the flat carry: a legacy simulator (its
+    ``flat_spec`` of ``params0`` None) is refused with the errors the
+    JAX package's ``init`` and step raise."""
     cell_ax, client_ax = _mesh_axes(mesh)
     size, _ = _world()
     if mesh.size and int(mesh.ranks.max()) >= size:
         raise ValueError(
             f"mesh ranks {mesh.ranks.ravel().tolist()} outside the world — "
             f"have {device_topology()}")
+    faulty = any(f is not None for f in faults) or sim.faults is not None
+    legacy = sim.flat_spec(params0) is None
+    if legacy and faulty:
+        raise ValueError(FAULTS_NEED_FLAT)
     if client_ax is not None:
-        if any(f is not None for f in faults) or sim.faults is not None:
+        if legacy:
+            raise ValueError(SHARDING_NEEDS_FLAT)
+        if faulty:
             raise ValueError(FAULTS_UNDER_CLIENTS)
         _check_client_shards(int(sim.p.shape[0]), mesh.shape[client_ax])
         mode, _ = parse_reduction(reduction)
@@ -644,7 +654,7 @@ def run_client_sharded(sim, key, params0, num_steps: int, *, scheduler=None,
     energy = sim.energy if energy is None else energy
     if scheduler is None or energy is None:
         raise ValueError("scheduler/energy must be given (or set on sim)")
-    _check_sharded(sim, mesh, reduction, ())
+    _check_sharded(sim, mesh, reduction, (), params0)
     from repro_torch.experiments.engine import _group_key
 
     sig = (sim, int(num_steps), eval_fn, eval_every, mesh, reduction,
@@ -677,7 +687,7 @@ def run_group_sharded(scheduler, energy, active, p, params0, keys, *, sim,
     ``psum`` / ``fused`` f32 tolerance, ``*_bf16`` bf16 tolerance).
     """
     faults = [None] * n_scenarios if faults is None else list(faults)
-    _, client_ax = _check_sharded(sim, mesh, reduction, faults)
+    _, client_ax = _check_sharded(sim, mesh, reduction, faults, params0)
     from repro_torch.experiments.engine import _group_key
 
     sig = (sim, int(num_steps), eval_fn, eval_every, mesh,

@@ -15,6 +15,7 @@ evaluated on the step counter's device, so the host never waits for it.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -48,6 +49,22 @@ def _step0(params):
     return torch.zeros((), dtype=torch.int32, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def _weak(x: float, dtype) -> float:
+    """The Python scalar ``x`` as a JAX weak-typed scalar meets an array
+    of ``dtype``: rounded to that dtype (0.9 is 0.8984375 beside a bf16
+    leaf), where torch would keep it at f32 precision."""
+    return float(torch.tensor(x, dtype=dtype)) if dtype.is_floating_point \
+        else x
+
+
+def _step_of(eta, g):
+    """``-eta * g`` with JAX's promotion: the f32 learning rate and a bf16
+    leaf give an f32 step (``apply_updates`` rounds it once, onto the
+    leaf), where torch would round eta to bf16 first."""
+    return -eta * g.to(torch.promote_types(g.dtype, eta.dtype))
+
+
 class SGDState(NamedTuple):
     step: torch.Tensor
 
@@ -59,7 +76,7 @@ def sgd(lr) -> Optimizer:
     def update(grads, state, params=None):
         del params
         eta = resolve_lr(lr, state.step)
-        updates = tree_map(lambda g: -eta * g, grads)
+        updates = tree_map(lambda g: _step_of(eta, g), grads)
         return updates, SGDState(step=state.step + 1)
 
     return Optimizer(init, update, kind="sgd", hyper=lr)
@@ -78,11 +95,14 @@ def momentum(lr, beta: float = 0.9, nesterov: bool = False) -> Optimizer:
     def update(grads, state, params=None):
         del params
         eta = resolve_lr(lr, state.step)
-        vel = tree_map(lambda v, g: beta * v + g, state.velocity, grads)
+        vel = tree_map(lambda v, g: _weak(beta, v.dtype) * v + g,
+                       state.velocity, grads)
         if nesterov:
-            updates = tree_map(lambda v, g: -eta * (beta * v + g), vel, grads)
+            updates = tree_map(
+                lambda v, g: _step_of(eta, _weak(beta, v.dtype) * v + g),
+                vel, grads)
         else:
-            updates = tree_map(lambda v: -eta * v, vel)
+            updates = tree_map(lambda v: _step_of(eta, v), vel)
         return updates, MomentumState(step=state.step + 1, velocity=vel)
 
     return Optimizer(init, update)

@@ -204,12 +204,12 @@ def test_resumed_carry_equals_uninterrupted_run(tmp_path, opt, faults):
     w0 = torch.full((dim,), 4.0)
     spec = sim.flat_spec(w0)
     key = trandom.PRNGKey(7, device="cpu")
-    whole, hist = sim.run_carry(sim.init(key, w0), 20, spec=spec)
+    whole, hist = sim.run_carry(sim.init(key, w0, spec=spec), 20, spec=spec)
     mgr = CheckpointManager(str(tmp_path / "ck"))
-    half, first = sim.run_carry(sim.init(key, w0), 9, spec=spec)
+    half, first = sim.run_carry(sim.init(key, w0, spec=spec), 9, spec=spec)
     mgr.save(9, half)
     restored, step = mgr.restore(sim.init(trandom.PRNGKey(0, device="cpu"),
-                                          w0))
+                                          w0, spec=spec))
     assert step == 9
     rest, second = sim.run_carry(restored, 11, spec=spec)
     got, want = tree_leaves(tuple(rest)), tree_leaves(tuple(whole))

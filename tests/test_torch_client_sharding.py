@@ -26,6 +26,9 @@ versions on the CPU). Held:
 - the last shard of a ragged population with every row masked (rank 1
   of 2 at population 3, rank 3 of 4 at population 5 of 8): K1 and K2's
   delta exact zeros, NaN in the masked rows;
+- the legacy per-leaf carry (``flat=False``) on a cells mesh bit for
+  bit the one-process study, its participation JAX's cells mesh's; on
+  a clients mesh refused with JAX's error;
 - faults under a clients axis refused with JAX's error; ``fused`` with
   a momentum optimizer refused, and with ``degrade=True`` stepped down
   to ``psum`` with the same ``DowngradeRecord`` the JAX package records;
@@ -306,6 +309,35 @@ def test_refusals_and_downgrade_match_jax(run2):
     assert extra[0]["fused_momentum_error"] == \
         json.loads(extra[0]["downgrades"][0])["error"]
     assert extra[0]["downgraded_equals_psum"]
+
+
+def test_legacy_carry_on_cells_and_clients_meshes_matches_jax(run):
+    """The legacy per-leaf carry (``flat=False``): a cells mesh takes it,
+    bit for bit the one-process study, its participation JAX's on the
+    conftest's CPU devices; a clients mesh refuses it with the error
+    the JAX package's step raises."""
+    world = len(run["reports"])
+    for extra in run["extras"]:
+        assert extra["legacy_cells_bitwise"]
+        assert extra["legacy_clients_error"] is not None
+    if jax.device_count() < world:
+        pytest.skip(f"needs {world} jax devices (tests/conftest.py)")
+    kw, w0 = _jax_job()
+    study = (JE.Study("extra", num_steps=10).axis("scheduler", "alg2")
+             .axis("arrivals", "binary").axis("n_clients", [5, 8])
+             .axis("seeds", 2))
+    legacy = JSim(optimizer=j_sgd(0.02), flat=False, **kw)
+    jres = study.run(sim=legacy, params0=w0, config=JE.ExecutionConfig(
+        mesh=JE.make_cell_mesh(world)))
+    for extra in run["extras"]:
+        for name, cell in jres.items():
+            np.testing.assert_array_equal(
+                np.asarray(extra["legacy_participation"][name]),
+                np.asarray(cell.history.participation))
+    with pytest.raises(ValueError) as err:
+        study.run(sim=legacy, params0=w0, config=JE.ExecutionConfig(
+            mesh=JE.make_client_mesh(world)))
+    assert run["extras"][0]["legacy_clients_error"] == str(err.value)
 
 
 def test_client_keys_shard_local_equal_jax_global_rows():

@@ -10,8 +10,10 @@ port is installed:
 Tolerances as in ``chip_smoke.py``: f32 kernels against their plain
 versions rtol=atol=1e-6 (weights at the trainer's scale, Σω≈1); bf16
 gradients into f32 1e-5; bitwise inside the port for masked rows and
-for fused against unfused. The slice on the card is held against the
-same slice on the CPU to the CNN tolerance of ``test_torch_trainer.py``
+for fused against unfused; K1 once a leaf at the Fig-1 CNN's 8 leaves
+(the legacy carry's route) bitwise K1 on the raveled buffer. The slice
+on the card is held against the same slice on the CPU to the CNN
+tolerance of ``test_torch_trainer.py``
 (``rtol=1e-4, atol=1e-5``), with TF32 off and cuDNN deterministic.
 
 K3 (flash attention) against its plain version computed in f32 from the
@@ -308,6 +310,54 @@ def test_aggregate_two_launches_bitwise_equal(card):
                 ops.masked_scaled_aggregate_update(gg, w, 0.05, params, m))
 
 
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_k1_once_a_leaf_at_the_cnn_leaf_shapes(card, dtype):
+    """The legacy carry's route (``aggregate_client_grads_kernel_per_leaf``)
+    at the Fig-1 CNN's 8 leaves, 40 rows, masked rows holding NaN: one
+    K1 launch a leaf, each within 1e-6 of its plain version (bf16 leaves
+    in the f32-out form within 1e-5, the repo's bf16-into-f32 tolerance;
+    the leaf-dtype result is that sum rounded once), the masked rows
+    exact zeros, and the leaves bitwise K1 on the raveled (40, 316,554)
+    buffer, column by column: each column is summed over n in order in
+    one register, whatever its block's span. The weights are bf16 values,
+    so the route's rounding of ω to the leaf's dtype leaves them as the
+    raveled launch takes them."""
+    from repro_torch.core.aggregation import (
+        aggregate_client_grads_kernel_per_leaf, ravel_spec, unravel_pytree)
+
+    n = 40
+    params = init_cnn(trandom.PRNGKey(0, device="cuda"), image_hw=32)
+    spec = ravel_spec(params)
+    assert spec.total == 316_554 and len(spec.sizes) == 8
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    g = torch.randn(n, spec.total, device="cuda", generator=gen).to(dtype)
+    w = (torch.rand(n, device="cuda", generator=gen) * (2.0 / n)).to(
+        torch.bfloat16).float()
+    mask = (torch.arange(n, device="cuda") % 7 != 3).float()
+    poisoned = torch.where(mask[:, None] > 0, g, float("nan")).to(dtype)
+    raveled = ops.masked_scaled_aggregate(poisoned, w, mask=mask)
+    # Each leaf its own (40, ...) buffer, as a grads_fn returns them.
+    tree = {k: {kk: v.contiguous() for kk, v in d.items()}
+            for k, d in unravel_pytree(poisoned, spec).items()}
+    before = ops.launch_counts["masked_scaled_aggregate"]
+    out = aggregate_client_grads_kernel_per_leaf(tree, w, mask)
+    assert ops.launch_counts["masked_scaled_aggregate"] == before + 8
+    leaves = [out[k][kk] for k in sorted(out) for kk in sorted(out[k])]
+    assert all(x.dtype == dtype for x in leaves)
+    assert torch.equal(torch.cat([x.reshape(-1) for x in leaves]), raveled)
+    for (o, size), got in zip(zip(spec.offsets, spec.sizes), leaves):
+        leaf = poisoned[:, o:o + size].contiguous()
+        clean = g[:, o:o + size].contiguous()
+        assert torch.equal(got.reshape(-1), ops.masked_scaled_aggregate(
+            torch.where(mask[:, None] > 0, clean, 0).to(dtype), w, mask=mask))
+        sum32 = ops.masked_scaled_aggregate(leaf, w, out_dtype=torch.float32, mask=mask)
+        assert torch.equal(got.reshape(-1), sum32.to(dtype))
+        tol = 1e-6 if dtype == torch.float32 else 1e-5
+        torch.testing.assert_close(
+            sum32, ref.masked_scaled_aggregate_ref(clean, w, mask, torch.float32),
+            rtol=tol, atol=tol)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     g, w, mask, params = _operands(8, 300, 3)
     with pytest.raises(ValueError, match="contiguous"):
@@ -353,6 +403,53 @@ def test_slice_on_card_matches_cpu(card):
     assert torch.equal(cuda_hist.participation.cpu(), cpu_hist.participation)
     torch.testing.assert_close(ravel_pytree(cuda_params).cpu(),
                                ravel_pytree(cpu_params), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("form", ["legacy", "mixed"])
+def test_legacy_carry_on_card_matches_cpu(card, form):
+    """The small Fig-1 loop on the legacy tree carry (alg1, momentum):
+    ``flat=False`` all f32, or the biases in bf16 under ``flat=None``, on
+    the card and on the CPU from one seed: same participation, f32 leaves
+    to the CNN tolerance, bf16 leaves to ``rtol=atol=2e-2``
+    (``tests/test_torch_legacy_carry.py``), K1 once a leaf a step and no
+    K2."""
+    n, steps = 8, 5
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(n * 6, 8, 8, 3)).astype(np.float32)
+    y = rng.integers(0, 10, n * 6).astype(np.int32)
+    per = [{"x": x[i * 6:(i + 1) * 6], "y": y[i * 6:(i + 1) * 6]}
+           for i in range(n)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        batcher = ClientBatcher(per, 2, seed=0, device=dev)
+        sim = ClientSimulator(
+            grads_fn=client_grads_fn(batcher), p=batcher.p,
+            optimizer=momentum(0.02), scheduler=make_scheduler("alg1", n),
+            energy=DeterministicArrivals.periodic([1, 2, 4, 8] * 2, steps),
+            use_kernel=True, flat=False if form == "legacy" else None,
+            device=dev)
+        params = init_cnn(trandom.PRNGKey(1, device=dev), image_hw=8)
+        if form == "mixed":
+            params = {k: {kk: v.to(torch.bfloat16) if kk == "b" else v
+                          for kk, v in d.items()} for k, d in params.items()}
+        assert sim.flat_spec(params) is None
+        before = dict(ops.launch_counts)
+        final, hist = sim.run(trandom.PRNGKey(7, device=dev), params, steps)
+        launched = {k: ops.launch_counts[k] - before[k] for k in before}
+        out[dev] = (final, hist, launched)
+    assert out["cpu"][2] == {"masked_scaled_aggregate": 0,
+                             "masked_scaled_aggregate_update": 0}
+    assert out["cuda"][2] == {"masked_scaled_aggregate": 8 * steps,
+                              "masked_scaled_aggregate_update": 0}
+    assert torch.equal(out["cuda"][1].participation.cpu(),
+                       out["cpu"][1].participation)
+    for k in out["cpu"][0]:
+        for kk, want in out["cpu"][0][k].items():
+            got = out["cuda"][0][k][kk].cpu()
+            assert got.dtype == want.dtype
+            tol = (dict(rtol=2e-2, atol=2e-2) if want.dtype == torch.bfloat16
+                   else dict(rtol=1e-4, atol=1e-5))
+            torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
 def test_fig1_study_on_card_through_k2(card):

@@ -115,7 +115,7 @@ def test_cnn_slice_matches_jax(sched, opt, use_kernel):
     jc, jh = jsim.run_carry(jc, T, spec=spec, donate=False)
     tspec = tsim.flat_spec(tparams)
     assert tspec.total == spec.total and tspec.shapes == spec.shapes
-    tc = tsim.init(trandom.PRNGKey(7, device="cpu"), tparams)
+    tc = tsim.init(trandom.PRNGKey(7, device="cpu"), tparams, spec=tspec)
     tc, th = tsim.run_carry(tc, T, spec=tspec)
     _assert_history(th, jh)
     _assert_carry(tc, jc)
@@ -134,9 +134,9 @@ def test_ragged_active_mask_matches_jax(opt):
     jc = jsim.init(jax.random.PRNGKey(3), jparams, spec=spec)
     jc, jh = jsim.run_carry(jc, T, spec=spec, donate=False, p=jnp.asarray(p),
                             active_mask=jnp.asarray(active))
-    tc = tsim.init(trandom.PRNGKey(3, device="cpu"), tparams)
-    tc, th = tsim.run_carry(tc, T, spec=tsim.flat_spec(tparams), p=p,
-                            active_mask=active)
+    tspec = tsim.flat_spec(tparams)
+    tc = tsim.init(trandom.PRNGKey(3, device="cpu"), tparams, spec=tspec)
+    tc, th = tsim.run_carry(tc, T, spec=tspec, p=p, active_mask=active)
     _assert_history(th, jh)
     _assert_carry(tc, jc)
     assert not th.participation[:, active == 0].any()
@@ -181,7 +181,7 @@ def test_carry_from_jax_resumes():
 def test_step_is_one_round_of_run_carry():
     _, tsim, _, tparams = _pair("benchmark1", "momentum", True)
     spec = tsim.flat_spec(tparams)
-    c0 = tsim.init(trandom.PRNGKey(4, device="cpu"), tparams)
+    c0 = tsim.init(trandom.PRNGKey(4, device="cpu"), tparams, spec=spec)
     c1, out = tsim.step(c0, spec=spec)
     c2, hist = tsim.run_carry(c0, 1, spec=spec)
     assert int(c1.t) == int(c2.t) == 1
@@ -205,20 +205,29 @@ def test_default_device_is_the_card():
 
 
 def test_unported_paths_raise():
-    """The legacy per-leaf carry and mixed-dtype parameters refuse,
-    naming their ROADMAP step; ``faults=`` is ported and accepted, and
-    the constructor's component reaches the carry."""
+    """The refusals the JAX package makes: ``flat=True`` on a mixed-dtype
+    tree, faults on the legacy tree carry (``init`` without a spec, as
+    in JAX), and faults under a client shard. ``faults=`` on the flat
+    carry is accepted, and the constructor's component reaches the
+    carry."""
     kw = dict(grads_fn=lambda p, k, t: p, p=np.ones(2) / 2,
               optimizer=t_sgd(0.1), device="cpu")
-    with pytest.raises(NotImplementedError, match="flat=False.*step 5"):
-        TSim(**kw, flat=False)
+    mixed = {"a": torch.zeros(2), "b": torch.zeros(2, dtype=torch.float64)}
+    with pytest.raises(ValueError, match="single leaf dtype"):
+        TSim(**kw, flat=True).flat_spec(mixed)
+    assert TSim(**kw).flat_spec(mixed) is None
+    assert TSim(**kw, flat=False).flat_spec(torch.zeros(4)) is None
     stale = StaleUpdates(0.5, delay=3)
     faulty = TSim(**kw, faults=stale)
     assert faulty.faults is stale
-    carry = faulty.init(trandom.PRNGKey(0, device="cpu"), torch.zeros(4),
-                        scheduler=t_make_scheduler("alg1", 2),
-                        energy=TDet.periodic([1, 2], 4))
+    comps = dict(scheduler=t_make_scheduler("alg1", 2),
+                 energy=TDet.periodic([1, 2], 4))
+    w0 = torch.zeros(4)
+    carry = faulty.init(trandom.PRNGKey(0, device="cpu"), w0,
+                        spec=faulty.flat_spec(w0), **comps)
     assert carry.fault_state.shape == (3, 2, 4)
-    sim = TSim(**kw)
-    with pytest.raises(NotImplementedError, match="mixed-dtype.*step 5"):
-        sim.flat_spec({"a": torch.zeros(2), "b": torch.zeros(2, dtype=torch.float64)})
+    with pytest.raises(ValueError, match="requires flat-carry execution"):
+        faulty.init(trandom.PRNGKey(0, device="cpu"), w0, **comps)
+    with pytest.raises(ValueError, match="requires flat-carry execution"):
+        TSim(**kw, faults=stale, flat=False).run(
+            trandom.PRNGKey(0, device="cpu"), w0, 2, **comps)

@@ -17,6 +17,8 @@ need ranks beyond the job, and writes their outcome to
   stepped down to ``psum`` with a ``DowngradeRecord`` with
   ``degrade=True``, and then bitwise the ``psum`` run;
 - a faults axis under a clients mesh: refused before any step;
+- the legacy per-leaf carry (``flat=False``): on a cells mesh bitwise
+  the one-process study, on a clients mesh refused before any step;
 - ``run_client_sharded`` of one cell: ``gather`` (with an eval hook)
   bitwise ``ClientSimulator.run``, ``psum`` within f32 tolerance;
 - a client-aware grads_fn (``clients=``): only its rows computed, within
@@ -135,6 +137,27 @@ def extra_checks(device) -> dict:
         out["faults_error"] = None
     except ValueError as e:
         out["faults_error"] = str(e)
+
+    # The legacy per-leaf carry: a cells mesh takes it (bit for bit the
+    # one-process study), a clients mesh refuses it before any step.
+    job = D.make_job_sim(device)
+    legacy = ClientSimulator(grads_fn=job.grads_fn, p=job.p,
+                             optimizer=job.optimizer, loss_fn=job.loss_fn,
+                             use_kernel=True, flat=False, device=device)
+    alone = study.run(sim=legacy, params0=w0)
+    cells = study.run(sim=legacy, params0=w0, config=ExecutionConfig(
+        mesh=placement.make_cell_mesh()))
+    out["legacy_cells_bitwise"] = all(
+        torch.equal(x, y) for name in alone
+        for x, y in zip(tree_leaves(tuple(alone[name])),
+                        tree_leaves(tuple(cells[name]))))
+    out["legacy_participation"] = {
+        name: cells[name].history.participation.tolist() for name in cells}
+    try:
+        study.run(sim=legacy, params0=w0, config=ExecutionConfig(mesh=mesh))
+        out["legacy_clients_error"] = None
+    except ValueError as e:
+        out["legacy_clients_error"] = str(e)
 
     sim = D.make_job_sim(device)
     n = D.JOB_N_CAP
